@@ -39,7 +39,7 @@ from repro_torch.core.operator import (
 from repro_torch.models.hyena import hyena_prefill
 from repro_torch.kernels.twolevel_fft import twolevel_fft_conv
 
-from torch_port_util import TORCH_THREADS, t
+from torch_port_util import TORCH_THREADS, free_jax_programs, t  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -2,7 +2,7 @@
 the card.  Every test here needs a CUDA device and skips without one; run
 them on the card with
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m cuda tests/port/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 """

@@ -19,9 +19,9 @@ from repro_torch.bridge import from_jax_values, to_jax_values
 from repro_torch.configs import check_supported, list_configs
 from repro_torch.models import lm
 
-from torch_port_util import jax_and_torch_model
+from torch_port_util import free_jax_programs, jax_and_torch_model  # noqa: F401
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+ROOT = pathlib.Path(__file__).resolve().parents[2]
 PORT = ROOT / "src" / "repro_torch"
 
 

@@ -38,7 +38,7 @@ from repro_torch.models import lm
 from repro_torch.models.mixer_api import ApplyContext
 from repro_torch.serve.engine import ServeConfig, generate
 
-from torch_port_util import TORCH_THREADS, jax_and_torch_model, t
+from torch_port_util import TORCH_THREADS, free_jax_programs, jax_and_torch_model, t  # noqa: F401
 
 ARCHS = ["hyena-153m", "hyena-125m"]
 B, L, MAX_LEN, NEW = 2, 100, 128, 8  # L=100 pads to N=200 = 10·20

@@ -1,8 +1,19 @@
 """Shared helpers of the ``test_torch_*`` parity tests: the same weights and
 inputs, made from numpy seeds, go through the JAX package and the PyTorch
-port, which exchange arrays as numpy."""
+port, which exchange arrays as numpy.
+
+They live in ``tests/port/`` rather than beside the JAX suite so that pytest
+collects them first: xdist hands tests out in batches sized by how many are
+still pending, and tests collected after the JAX suite's randomized serve
+harnesses would enlarge the batches those heavy harnesses go out in.  Each
+process keeps every XLA program it compiled mapped, and a worker that gets
+several of them in one batch can reach the kernel's per-process map limit
+(``vm.max_map_count``) and crash."""
+import gc
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.common.param import split_params
@@ -13,6 +24,15 @@ from repro_torch.configs import get_config as torch_get_config
 
 # six xdist workers share the host: keep each one's torch pool small
 TORCH_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def free_jax_programs():
+    """Drop the XLA programs a parity module compiled once it is done, so the
+    worker goes on to the JAX suite with no more memory maps than it had."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def jax_and_torch_model(arch: str, seed: int = 0):
