@@ -51,12 +51,13 @@ def _factor(N: int) -> Tuple[int, int]:
 
 
 def resolve_factors(N: int, factors: Optional[Tuple[int, int]]) -> Tuple[int, int]:
-    """The (R, S) split a caller gets: ``factors`` when they multiply to
-    ``N``, else the default split (a stale plan for another length is
-    dropped, as in JAX)."""
-    if factors is not None and factors[0] * factors[1] == N:
-        return int(factors[0]), int(factors[1])
-    return _factor(N)
+    """The (R, S) split a caller gets: the default split when ``factors`` is
+    None, else ``factors``, which must multiply to ``N``."""
+    if factors is None:
+        return _factor(N)
+    if factors[0] * factors[1] != N:
+        raise ValueError(f"factors {tuple(factors)} do not multiply to N={N}")
+    return int(factors[0]), int(factors[1])
 
 
 @functools.lru_cache(maxsize=32)

@@ -33,12 +33,14 @@
 // outer(r, r) and outer(s, s)), which the host checks; the inverse outer
 // DFT reads FS[q, s] for FS[s, q] so that its reads coalesce too.
 //
-// Bound.  At the main path's shapes the direct sums make the kernel bound
-// by fp32 operations on the CUDA cores, not by bytes (a few reads of u,
-// gate and H per output).  Loads, not FMAs, are what the inner loops issue
-// most, hence the channel vectors above; the design spends nothing on
-// tensor cores yet — running the DFTs as wgmma products is the way to a
-// faster kernel.
+// Bound.  At the served shape the function's least time on the card is
+// set by bytes: u, gate and the output cross device memory once, and an
+// O(N log N) FFT needs slightly fewer operations than that takes.  These direct sums do 4NR + 8NS fp32
+// FMAs per channel instead, so this kernel is bound by its own fp32
+// operations on the CUDA cores.  Loads, not FMAs, are what the inner loops
+// issue most, hence the channel vectors above; the design spends nothing
+// on tensor cores yet — running the DFTs as wgmma products, or as a
+// radix-2/4 FFT in shared memory, is the way to a faster kernel.
 //
 // The kernel launches on the caller's stream and allocates nothing.  The C
 // entry points return cudaGetLastError() after the launch.
@@ -47,8 +49,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <mutex>
+
 // position-channel outputs a thread holds in registers across a sync
 #define STAGED 16
+#define MAX_DEVICES 64
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -102,13 +107,24 @@ __device__ __forceinline__ void store_staged(float* re, float* im, int N,
   }
 }
 
+// Launch bounds per tile width.  The launch shape (twolevel_fft.py
+// launch_shape) gives 1024 threads only to one-channel tiles (N > 8192),
+// and at most 512 to 2- and 4-channel tiles, which ask for two blocks per
+// SM.  Either way ptxas gets 64 registers a thread and spills a little:
+// measured on the H100, 512 threads with one block per SM (74 registers,
+// no spills in the served instance) ran 1.5 % slower than two blocks of
+// 64 registers.
+template <int TD> struct Bounds {
+  static constexpr int threads = TD == 1 ? 1024 : 512;
+  static constexpr int blocks = TD == 1 ? 1 : 2;
+};
+
 template <typename T, int TD>
-__global__ void __launch_bounds__(1024) twolevel_fft_conv_kernel(
+__global__ void __launch_bounds__(Bounds<TD>::threads, Bounds<TD>::blocks) twolevel_fft_conv_kernel(
     const T* __restrict__ u,          // (B, L, D)
     const T* __restrict__ gate,       // (B, L, D) or null
     const float* __restrict__ skip,   // (D,) or null
-    const float* __restrict__ hre,    // (R, S, D) filter spectrum (re)
-    const float* __restrict__ him,    // (R, S, D) (im)
+    const float2* __restrict__ hc,    // (R, S, D) filter spectrum, complex64
     const float* __restrict__ frre,   // (R, R) inner DFT
     const float* __restrict__ frim,
     const float* __restrict__ twre,   // (R, S) twiddle W_N^{k1 s}
@@ -203,8 +219,9 @@ __global__ void __launch_bounds__(1024) twolevel_fft_conv_kernel(
         const int d = d0 + c;
         float hr = 0.f, hi = 0.f;
         if (d < D) {
-          hr = hre[(int64_t)p * D + d];
-          hi = him[(int64_t)p * D + d];
+          const float2 hv = __ldg(hc + (int64_t)p * D + d);
+          hr = hv.x;
+          hi = hv.y;
         }
         vre[j][c] = cre[c] * hr - cim[c] * hi;
         vim[j][c] = cre[c] * hi + cim[c] * hr;
@@ -285,28 +302,40 @@ __global__ void __launch_bounds__(1024) twolevel_fft_conv_kernel(
 
 template <typename T, int TD>
 static int launch_td(const void* u, const void* gate, const float* skip,
-                     const float* hre, const float* him,
+                     const float* hc,
                      const float* frre, const float* frim,
                      const float* twre, const float* twim,
                      const float* fsre, const float* fsim, void* out,
                      int B, int L, int D, int R, int S, int threads,
                      int smem_bytes, cudaStream_t stream) {
+  if (threads > Bounds<TD>::threads) return (int)cudaErrorInvalidConfiguration;
   if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        twolevel_fft_conv_kernel<T, TD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    // raise this instance's dynamic shared-memory limit on the current
+    // device once, and again only for a launch that needs more
+    static std::mutex mu;
+    static int raised[MAX_DEVICES] = {0};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
+    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> hold(mu);
+    if (smem_bytes > raised[dev]) {
+      e = cudaFuncSetAttribute(twolevel_fft_conv_kernel<T, TD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+      raised[dev] = smem_bytes;
+    }
   }
   dim3 grid((D + TD - 1) / TD, B);
   twolevel_fft_conv_kernel<T, TD><<<grid, threads, smem_bytes, stream>>>(
-      (const T*)u, (const T*)gate, skip, hre, him, frre, frim, twre, twim,
+      (const T*)u, (const T*)gate, skip, (const float2*)hc, frre, frim, twre, twim,
       fsre, fsim, (T*)out, L, D, R, S);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch(const void* u, const void* gate, const float* skip,
-                  const float* hre, const float* him,
+                  const float* hc,
                   const float* frre, const float* frim,
                   const float* twre, const float* twim,
                   const float* fsre, const float* fsim, void* out,
@@ -315,13 +344,13 @@ static int launch(const void* u, const void* gate, const float* skip,
   cudaStream_t st = (cudaStream_t)stream;
   switch (td) {
     case 1:
-      return launch_td<T, 1>(u, gate, skip, hre, him, frre, frim, twre, twim,
+      return launch_td<T, 1>(u, gate, skip, hc, frre, frim, twre, twim,
                              fsre, fsim, out, B, L, D, R, S, threads, smem_bytes, st);
     case 2:
-      return launch_td<T, 2>(u, gate, skip, hre, him, frre, frim, twre, twim,
+      return launch_td<T, 2>(u, gate, skip, hc, frre, frim, twre, twim,
                              fsre, fsim, out, B, L, D, R, S, threads, smem_bytes, st);
     case 4:
-      return launch_td<T, 4>(u, gate, skip, hre, him, frre, frim, twre, twim,
+      return launch_td<T, 4>(u, gate, skip, hc, frre, frim, twre, twim,
                              fsre, fsim, out, B, L, D, R, S, threads, smem_bytes, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -331,24 +360,24 @@ static int launch(const void* u, const void* gate, const float* skip,
 extern "C" {
 
 int twolevel_fft_conv_f32(const void* u, const void* gate, const float* skip,
-                          const float* hre, const float* him,
+                          const float* hc,
                           const float* frre, const float* frim,
                           const float* twre, const float* twim,
                           const float* fsre, const float* fsim, void* out,
                           int B, int L, int D, int R, int S, int td,
                           int threads, int smem_bytes, void* stream) {
-  return launch<float>(u, gate, skip, hre, him, frre, frim, twre, twim, fsre,
+  return launch<float>(u, gate, skip, hc, frre, frim, twre, twim, fsre,
                        fsim, out, B, L, D, R, S, td, threads, smem_bytes, stream);
 }
 
 int twolevel_fft_conv_bf16(const void* u, const void* gate, const float* skip,
-                           const float* hre, const float* him,
+                           const float* hc,
                            const float* frre, const float* frim,
                            const float* twre, const float* twim,
                            const float* fsre, const float* fsim, void* out,
                            int B, int L, int D, int R, int S, int td,
                            int threads, int smem_bytes, void* stream) {
-  return launch<__nv_bfloat16>(u, gate, skip, hre, him, frre, frim, twre, twim,
+  return launch<__nv_bfloat16>(u, gate, skip, hc, frre, frim, twre, twim,
                                fsre, fsim, out, B, L, D, R, S, td, threads,
                                smem_bytes, stream);
 }

@@ -16,17 +16,19 @@ Kernel (``csrc/twolevel_fft.cu``): one block per (batch row, tile of
 fp32 (re, im), 8·N bytes per channel, and runs every stage on it as direct
 DFT sums, each thread one grid position for all channels of the tile,
 with the tables read from global memory exactly as ``_dft_mats`` builds
-them.  What bounds it on the card: fp32 operations on the CUDA
-cores (4NR + 8NS FMAs per channel), not bytes; the design keeps every
-intermediate in shared memory so the conv output and inputs cross device
-memory once, and leaves the tensor cores to a later version.  It takes
+them.  What bounds it on the card: its own fp32 operations on the CUDA
+cores (4NR + 8NS FMAs per channel), though at the served shape the
+function's least time is set by bytes (an O(N log N) FFT needs fewer
+operations than moving u, gate and the output takes); the design keeps
+every intermediate in shared memory so the conv output and inputs cross
+device memory once, and leaves the tensor cores to a later version.  It takes
 L <= 8192 (N <= 16384, 128 KB of shared memory), fp32 or bf16 ``u`` and
 ``gate``, any (R, S) split and any D, and raises on anything else.
 
 On a CPU tensor the wrapper runs the plain version
 (``blockfft_causal_conv`` with the same factors); on a CUDA tensor it
-launches the kernel or raises.  ``twolevel_fft_conv.launches`` counts
-kernel launches.
+launches the kernel or raises.  ``launch_with_spectrum`` is the launch
+alone, given H; ``twolevel_fft_conv.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -89,7 +91,7 @@ def _kernel(dtype_tag: str):
 
     lib = load("twolevel_fft")
     fn = getattr(lib, f"twolevel_fft_conv_{dtype_tag}")
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.twolevel_error_string.argtypes = [ctypes.c_int]
     lib.twolevel_error_string.restype = ctypes.c_char_p
@@ -120,6 +122,34 @@ def twolevel_fft_conv(
         return blockfft_causal_conv(u, h, skip, gate, factors=factors)
     if u.device.type != "cuda":
         raise ValueError(f"twolevel_fft_conv takes CPU or CUDA tensors, got {u.device}")
+    if h.device != u.device:
+        raise ValueError(f"h is on {h.device}, u on {u.device}")
+    N = next_fast_len(2 * L - 1)
+    if N > MAX_N:
+        raise ValueError(f"kernel takes L <= {MAX_N // 2}, got L={L}")
+    R, S = resolve_factors(N, factors)
+    H = filter_spectrum(h, N, (R, S))  # (R, S, D) complex64
+    return launch_with_spectrum(u, H, skip, gate)
+
+
+def launch_with_spectrum(
+    u: torch.Tensor,  # (B, L, D) on a CUDA device
+    H: torch.Tensor,  # (R, S, D) complex64 filter spectrum, R·S = N
+    skip: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The kernel alone, given the filter spectrum that
+    :func:`twolevel_fft_conv` computes; it counts its launches on
+    ``twolevel_fft_conv.launches``."""
+    B, L, D = u.shape
+    R, S = H.shape[0], H.shape[1]
+    N = R * S
+    if u.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {u.device}")
+    if N != next_fast_len(2 * L - 1) or tuple(H.shape) != (R, S, D) or H.dtype != torch.complex64:
+        raise ValueError(
+            f"H is {H.dtype} {tuple(H.shape)}, not a complex64 spectrum for u {tuple(u.shape)}"
+        )
     if u.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"kernel takes fp32 or bf16 u, got {u.dtype}")
     if gate is not None and (gate.dtype != u.dtype or gate.shape != u.shape):
@@ -129,13 +159,9 @@ def twolevel_fft_conv(
         )
     if skip is not None and tuple(skip.shape) != (D,):
         raise ValueError(f"skip has shape {tuple(skip.shape)}, expected {(D,)}")
-    for name, t in (("h", h), ("skip", skip), ("gate", gate)):
+    for name, t in (("H", H), ("skip", skip), ("gate", gate)):
         if t is not None and t.device != u.device:
             raise ValueError(f"{name} is on {t.device}, u on {u.device}")
-    N = next_fast_len(2 * L - 1)
-    if N > MAX_N:
-        raise ValueError(f"kernel takes L <= {MAX_N // 2}, got L={L}")
-    R, S = resolve_factors(N, factors)
     out = torch.empty_like(u, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
@@ -143,14 +169,12 @@ def twolevel_fft_conv(
     u = u.contiguous()
     gate = None if gate is None else gate.contiguous()
     skip32 = None if skip is None else skip.float().contiguous()
-    H = filter_spectrum(h, N, (R, S))  # (R, S, D) complex64
-    hre = H.real.contiguous()
-    him = H.imag.contiguous()
+    H = H.contiguous()  # read as interleaved (re, im) fp32 pairs
     tables = _device_tables(N, (R, S), str(u.device))
     lib, fn = _kernel(_KERNEL_DTYPES[u.dtype])
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = fn(
-        u.data_ptr(), _ptr(gate), _ptr(skip32), hre.data_ptr(), him.data_ptr(),
+        u.data_ptr(), _ptr(gate), _ptr(skip32), H.data_ptr(),
         *(t.data_ptr() for t in tables), out.data_ptr(),
         B, L, D, R, S, td, threads, smem, stream,
     )

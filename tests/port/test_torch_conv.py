@@ -37,7 +37,7 @@ from repro_torch.core.operator import (
     precompute_decode_filters,
 )
 from repro_torch.models.hyena import hyena_prefill
-from repro_torch.kernels.twolevel_fft import twolevel_fft_conv
+from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
 
 from torch_port_util import TORCH_THREADS, free_jax_programs, t  # noqa: F401
 
@@ -66,6 +66,27 @@ def test_next_fast_len_and_factors_match_jax():
         assert TB._factor(N) == jax_factor(N)
         assert TB.factor_candidates(N) == jax_factor_candidates(N)
     assert TB._factor(2000) == (40, 50) and TB._factor(200) == (10, 20)
+
+
+def test_factors_that_miss_n_are_refused():
+    """The port keeps no stored plans, so a split that does not multiply to
+    N is the caller's mistake: the plain version and the kernel's wrapper
+    raise rather than fall back to the default split."""
+    u, h, skip, gate = (t(a) for a in _conv_inputs(1, 100, 3, 0))  # N = 200
+    assert TB.resolve_factors(200, None) == (10, 20)
+    assert TB.resolve_factors(200, (20, 10)) == (20, 10)
+    for conv in (TB.blockfft_causal_conv, twolevel_fft_conv):
+        with pytest.raises(ValueError, match="do not multiply to N=200"):
+            conv(u, h, skip, gate, factors=(16, 16))
+
+
+def test_launch_with_spectrum_refuses_cpu_tensors():
+    """The kernel alone has no plain version to run: on CPU tensors it
+    raises before it reaches the CUDA library."""
+    u, h, skip, gate = (t(a) for a in _conv_inputs(1, 100, 3, 0))
+    H = TB.filter_spectrum(h, 200, (10, 20))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launch_with_spectrum(u, H, skip, gate)
 
 
 # the shapes of tests/test_conv_backends_prop.py::test_twolevel_pallas_gated_tail_blocks

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.blockfft import blockfft_causal_conv
-from repro_torch.kernels.twolevel_fft import twolevel_fft_conv
+from repro_torch.core.blockfft import filter_spectrum
+from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
 from repro_torch.serve.engine import ServeConfig, generate
 from repro_torch.models import lm
 
@@ -75,6 +76,22 @@ def test_twolevel_kernel_counts_launches_and_refuses(cuda):
     with pytest.raises(ValueError, match="gate must match"):
         twolevel_fft_conv(u, h, skip, gate.bfloat16())
     assert twolevel_fft_conv.launches == before + 1
+
+
+def test_launch_with_spectrum_is_the_wrapper_without_h(cuda):
+    """The kernel alone, given the spectrum, computes what the wrapper does
+    (bit for bit), counts its launch, and refuses a spectrum that does not
+    fit u."""
+    u, h, skip, gate = _inputs(2, 1000, 33, torch.bfloat16, cuda)
+    H = filter_spectrum(h, 2000, (40, 50))
+    before = twolevel_fft_conv.launches
+    got = launch_with_spectrum(u, H, skip, gate)
+    assert twolevel_fft_conv.launches == before + 1
+    assert torch.equal(got, twolevel_fft_conv(u, h, skip, gate, factors=(40, 50)))
+    with pytest.raises(ValueError, match="complex64 spectrum"):
+        launch_with_spectrum(u[:, :999], H, skip, gate[:, :999])
+    with pytest.raises(ValueError, match="complex64 spectrum"):
+        launch_with_spectrum(u, H.real, skip, gate)
 
 
 def test_generate_on_cuda_launches_the_kernel_per_order_and_layer(cuda):

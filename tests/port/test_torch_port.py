@@ -78,6 +78,29 @@ def test_entry_points_refuse_missing_cuda():
         from_jax_values(jax.tree_util.tree_map(np.asarray, values), tcfg)
 
 
+def test_port_tests_are_collected_before_the_jax_suite(request):
+    """The port's tests live in ``tests/port/`` so that pytest collects them
+    before the JAX suite: it sorts a directory's entries by name, folders
+    and files together, and ``port`` sorts before ``test_*.py``.  xdist
+    sizes the batches it hands a worker by the tests still pending, so
+    tests collected after the JAX suite would enlarge the batches of
+    ``test_serve_engine.py``'s randomized harnesses; a worker that runs
+    several of them keeps every XLA program it compiled mapped and can
+    reach the per-process map limit and crash.  This fails if a change of
+    layout or of pytest puts any JAX-suite test ahead of a port test."""
+    here = pathlib.Path(__file__).resolve().parent
+    kinds = []
+    for item in request.session.items:
+        folder = pathlib.Path(str(item.path)).resolve().parent
+        if folder == here:
+            kinds.append("port")
+        elif folder == here.parent:
+            kinds.append("jax")
+    assert "port" in kinds
+    if "jax" in kinds:
+        assert "port" not in kinds[kinds.index("jax"):], "a JAX-suite test precedes a port test"
+
+
 _IMPORT_CHECK = r"""
 import importlib, importlib.util, pkgutil, sys
 sys.modules["jax"] = None

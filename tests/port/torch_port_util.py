@@ -9,6 +9,7 @@ harnesses would enlarge the batches those heavy harnesses go out in.  Each
 process keeps every XLA program it compiled mapped, and a worker that gets
 several of them in one batch can reach the kernel's per-process map limit
 (``vm.max_map_count``) and crash."""
+import functools
 import gc
 
 import jax
@@ -35,9 +36,11 @@ def free_jax_programs():
     gc.collect()
 
 
+@functools.lru_cache(maxsize=None)
 def jax_and_torch_model(arch: str, seed: int = 0):
     """(jax cfg, jax values, torch cfg, torch params on CPU) of the reduced
-    ``arch``, the torch weights bridged from the JAX ones."""
+    ``arch``, the torch weights bridged from the JAX ones.  Made once per
+    process (the JAX init compiles op by op, ~8 s); tests only read them."""
     jcfg = jax_get_config(arch).reduced()
     tcfg = torch_get_config(arch).reduced()
     values, _ = split_params(jax_lm.init_lm(jax.random.PRNGKey(seed), jcfg))
