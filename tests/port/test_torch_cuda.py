@@ -89,7 +89,7 @@ def test_launch_with_spectrum_is_the_wrapper_without_h(cuda):
     assert twolevel_fft_conv.launches == before + 1
     assert torch.equal(got, twolevel_fft_conv(u, h, skip, gate, factors=(40, 50)))
     with pytest.raises(ValueError, match="complex64 spectrum"):
-        launch_with_spectrum(u[:, :999], H, skip, gate[:, :999])
+        launch_with_spectrum(u[:, :500], H, skip, gate[:, :500])  # N = 1000
     with pytest.raises(ValueError, match="complex64 spectrum"):
         launch_with_spectrum(u, H.real, skip, gate)
 
