@@ -12,10 +12,11 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   shapes the served path gives it (and a non-power-of-two split, a ragged
-   channel tile, gated and ungated, skip or not, fp32 and bf16); print each
-   max error beside its tolerance and raise past it.  Float32 matmuls run
-   in full fp32 (``torch.backends.cuda.matmul.allow_tf32 = False``).
+   shapes the served paths give it (and a non-power-of-two split, a ragged
+   channel tile, a banded Toeplitz call, gated and ungated, skip or not,
+   fp32 and bf16); print each max error beside its tolerance and raise
+   past it.  Float32 matmuls run in full fp32
+   (``torch.backends.cuda.matmul.allow_tf32 = False``).
 3. The served path: hyena-153m at full width (18 layers, D=864, order 2,
    vocab 50257) with weights from a seed, ``generate()`` with
    ``ServeConfig(max_len=2048, conv_backend="blockfft_overlap")`` in bf16,
@@ -24,14 +25,28 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    launch the two-level FFT conv kernel exactly n_layers·order = 36 times.
    The prefill's logits must be finite and agree with the same prefill on
    the plain ``blockfft`` backend on the card.
+3b. The continuous-batching engine: ``ServeEngine`` serves hyena-153m at
+   full width with ``ServeConfig(max_len=2048, n_slots=4,
+   conv_backend="toeplitz")`` in bf16, 8 greedy requests of prompt lengths
+   1024, 1000, 768, 512, 333, 200, 97 and 1 with horizons of 8 to 32, to
+   the end of ``drain()``.  Every request must complete; each admission is
+   one batch-1 prefill, so the counters (0 just before, read just after)
+   must show n_layers·order = 36 ``toeplitz_conv`` launches per request;
+   every per-slot cache leaf of the pool must be zero after the drain; the
+   last-token logits of a 1024-token prefill on ``toeplitz`` must agree
+   with the kernel's plain version on the card.  The same requests at
+   fp32 must give exactly the tokens of per-request ``generate()``.
 4. Times (CUDA events; the host clock around synchronised work for the
-   served path): prefill ms, decode ms per step and tokens/s; the kernel's
-   ms per call (``ms``: the wrapper, which computes the filter spectrum
-   in plain PyTorch and launches the kernel; ``kernel_ms``: the kernel
-   alone, the spectrum given) beside its plain version, the ``torch.fft``
-   conv (``library_ms``) and its bound: the larger of the bytes the
-   function must move over 3.35 TB/s and an FFT conv's fp32 operations
-   over 67 TFLOP/s, the H100 SXM's published peaks.
+   served paths): prefill ms, decode ms per step and tokens/s of
+   ``generate()``; the engine's wall time, new tokens/s, ms per admission
+   prefill and per pooled decode step; each kernel's ms per call (``ms``:
+   the wrapper; for the FFT conv it computes the filter spectrum in plain
+   PyTorch and launches the kernel, ``kernel_ms`` is the kernel alone)
+   beside its plain version, the ``torch.fft`` conv of the same function
+   (``library_ms``) and its bound: the larger of the bytes the function
+   must move over 3.35 TB/s and an FFT conv's fp32 operations (a banded
+   call: the band's products) over 67 TFLOP/s, the H100 SXM's published
+   peaks.
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -39,6 +54,7 @@ script exits non-zero without that line; so does a machine without CUDA.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -53,6 +69,10 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 ARCH = "hyena-153m"
 BATCH, PROMPT_LEN, MAX_LEN, NEW_TOKENS = 4, 1024, 2048, 32
 SEED = 0
+# phase 3b: the engine's 8 mixed-length requests
+ENGINE_SLOTS = 4
+ENGINE_PROMPTS = (1024, 1000, 768, 512, 333, 200, 97, 1)
+ENGINE_HORIZONS = (32, 8, 24, 16, 32, 12, 20, 28)
 
 # kernel against plain version: bf16 outputs may land one bf16 ulp apart
 # (2^-7 of the value) where the fp32 sums straddle a rounding boundary, and
@@ -137,40 +157,73 @@ def conv_inputs(B, L, D, dtype, seed, device):
     return u, h, skip, gate
 
 
-def twolevel_bound_ms(B, L, D, dtype, spectrum_given=False):
+def conv_bound_ms(B, L, D, dtype, *, gated=True, skip=True, spectrum_given=False,
+                  band=None):
     """(ms, "bytes" or "operations"): the least time the card could take for
-    one gated ``twolevel_fft_conv`` call with skip, whatever the algorithm:
-    the larger of
-      bytes: u, gate and out in ``dtype``, skip in fp32, and the filter in
-        fp32 (the taps h, D·L, or with ``spectrum_given`` the spectrum H,
-        N·D complex, that ``launch_with_spectrum`` reads instead), each
-        moved once, over the memory rate;
-      operations: those of an FFT conv on N points, per row and channel a
-        real FFT of the column and its inverse (2.5·N·log2 N each, half a
-        complex radix-2 FFT's 5·N·log2 N), the spectral product (6 per
-        complex bin, N/2 + 1 bins) and 4 per output (1/N, skip
-        multiply-add, gate), plus a real FFT per channel for the filter's
-        spectrum unless it is given, over the fp32 rate."""
+    one causal long-conv call, whatever the algorithm; with all chunk
+    diagonals, ``toeplitz_conv`` and ``twolevel_fft_conv`` compute the same
+    function.  The larger of
+      bytes: u, the output and the gate (if ``gated``) in ``dtype``, skip
+        (if given) in fp32, and the filter in fp32 (the taps h, D·L, or
+        with ``spectrum_given`` the spectrum H, N·D complex, that
+        ``launch_with_spectrum`` reads instead), each moved once, over the
+        memory rate;
+      operations over the fp32 rate: for the exact conv those of an FFT
+        conv on N points, per row and channel a real FFT of the column and
+        its inverse (2.5·N·log2 N each, half a complex radix-2 FFT's
+        5·N·log2 N), the spectral product (6 per complex bin, N/2 + 1
+        bins) and 4 per output (scale, skip multiply-add, gate), plus a
+        real FFT per channel for the filter's spectrum unless it is given;
+        for a call banded to ``band`` = (C, K) chunk diagonals, a multiply
+        and an add for each (t, t') pair of the band and the same 4 per
+        output."""
+    import numpy as np
+
     from repro_torch.core.fftconv import next_fast_len
 
     N = next_fast_len(2 * L - 1)
     esize = 2 if str(dtype).endswith("bfloat16") else 4
     rfft = 2.5 * N * math.log2(N)
     filter_bytes = N * D * 8 if spectrum_given else D * L * 4
-    nbytes = 3 * B * L * D * esize + filter_bytes + D * 4
-    flops = B * D * (2 * rfft + 6 * (N // 2 + 1) + 4 * L) + (0 if spectrum_given else D * rfft)
+    nbytes = (2 + gated) * B * L * D * esize + filter_bytes + (D * 4 if skip else 0)
+    if band is None:
+        flops = B * D * (2 * rfft + 6 * (N // 2 + 1) + 4 * L)
+        flops += 0 if spectrum_given else D * rfft
+    else:
+        C, K = band
+        t = np.arange(L)
+        # (t, t') pairs with t' <= t and t//C - t'//C < K
+        first = np.maximum((t // C - K + 1) * C, 0)
+        flops = B * D * (2 * int((t - first + 1).sum()) + 4 * L)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(device) -> float:
-    """Phase 2; returns the max abs error at the served path's shape."""
+def compare(name, got, want, dtype, label):
+    """Max abs error of a kernel's output against its plain version, raised
+    past the stated tolerance."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{name} output not finite at {label}")
+    diff = (got.float() - want.float()).abs()
+    rtol, atol = TOLERANCE[str(dtype).split(".")[-1]]
+    excess = (diff - rtol * want.float().abs()).max().item()
+    err = diff.max().item()
+    log(f"  {name} {label}: max_abs_err={err:.3e} (tolerance {atol:g} + {rtol:g}·|plain|)")
+    if excess > atol:
+        raise RuntimeError(f"{name} disagrees with its plain version at {label}")
+    return err
+
+
+def check_twolevel(device) -> float:
+    """Phase 2, kernel 1; returns the max abs error at the served shape."""
     import torch
 
     from repro_torch.core.blockfft import blockfft_causal_conv
     from repro_torch.kernels.twolevel_fft import twolevel_fft_conv
 
-    served_err = None
     cases = [
         # (B, L, D, dtype, gated, with skip)
         (BATCH, PROMPT_LEN, 864, torch.bfloat16, True, True),  # the served path
@@ -184,26 +237,16 @@ def check_kernel(device) -> float:
         (2, 100, 5, torch.float32, True, True),  # N = 200 = 10·20
         (1, 8192, 8, torch.float32, True, True),  # the largest L taken
     ]
+    errs = []
     for i, (B, L, D, dtype, gated, with_skip) in enumerate(cases):
         u, h, skip, gate = conv_inputs(B, L, D, dtype, seed=100 + i, device=device)
         skip = skip if with_skip else None
         gate = gate if gated else None
-        got = twolevel_fft_conv(u, h, skip, gate)
-        want = blockfft_causal_conv(u, h, skip, gate)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got.float()).all():
-            raise RuntimeError(f"kernel output not finite at {(B, L, D)}")
-        diff = (got.float() - want.float()).abs()
-        rtol, atol = TOLERANCE[str(dtype).split(".")[-1]]
-        excess = (diff - rtol * want.float().abs()).max().item()
-        err = diff.max().item()
-        log(f"  twolevel_fft_conv B={B} L={L} D={D} {str(dtype)[6:]} "
-            f"gate={gated} skip={with_skip}: max_abs_err={err:.3e} "
-            f"(tolerance {atol:g} + {rtol:g}·|plain|)")
-        if excess > atol:
-            raise RuntimeError(f"kernel disagrees with its plain version at case {i}")
-        if i == 0:
-            served_err = err
+        errs.append(compare(
+            "twolevel_fft_conv", twolevel_fft_conv(u, h, skip, gate),
+            blockfft_causal_conv(u, h, skip, gate), dtype,
+            f"B={B} L={L} D={D} {str(dtype)[6:]} gate={gated} skip={with_skip}",
+        ))
     # the wrapper raises on what the kernel does not take
     u, h, _, _ = conv_inputs(1, 8193, 2, torch.float32, seed=1, device=device)
     try:
@@ -212,7 +255,100 @@ def check_kernel(device) -> float:
         log(f"  L=8193 refused: {e}")
     else:
         raise RuntimeError("kernel accepted L > 8192")
-    return served_err
+    return errs[0]
+
+
+def check_toeplitz(device) -> float:
+    """Phase 2, kernel 2; returns the max abs error at the engine's
+    admission shape (B=1, L=1024, bf16, gated, skip)."""
+    import torch
+
+    from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
+
+    cases = [
+        # (B, L, D, dtype, gated, with skip, n_chunk_diags)
+        (1, 1024, 864, torch.bfloat16, True, True, None),  # an admission
+        (1, 1024, 864, torch.float32, False, True, None),
+        (4, 1024, 864, torch.bfloat16, True, True, None),
+        (4, 1024, 864, torch.float32, True, False, None),
+        (1, 1000, 864, torch.bfloat16, True, True, None),  # L not a multiple of C
+        (1, 1000, 864, torch.float32, False, False, None),
+        (1, 37, 864, torch.bfloat16, True, True, None),  # L < C
+        (1, 37, 864, torch.float32, True, False, None),
+        (1, 1, 864, torch.bfloat16, True, True, None),  # L = 1
+        (1, 1, 864, torch.float32, False, True, None),
+        (2, 300, 865, torch.float32, True, True, 2),  # banded, ragged tile
+        (2, 300, 865, torch.bfloat16, False, False, 2),
+    ]
+    errs = []
+    for i, (B, L, D, dtype, gated, with_skip, K) in enumerate(cases):
+        u, h, skip, gate = conv_inputs(B, L, D, dtype, seed=200 + i, device=device)
+        skip = skip if with_skip else None
+        gate = gate if gated else None
+        errs.append(compare(
+            "toeplitz_conv", toeplitz_conv(u, h, skip, gate, n_chunk_diags=K),
+            toeplitz_conv_plain(u, h, skip, gate, n_chunk_diags=K), dtype,
+            f"B={B} L={L} D={D} {str(dtype)[6:]} gate={gated} skip={with_skip} K={K}",
+        ))
+    # the model path's operands: torch.split views and the max_len filter
+    # sliced to L, read in place
+    g = torch.Generator(device=device).manual_seed(7)
+    z = torch.randn(1, PROMPT_LEN, 3 * 864, generator=g, device=device).bfloat16()
+    h = torch.randn(864, MAX_LEN, generator=g, device=device)[:, :PROMPT_LEN] / PROMPT_LEN
+    u, gate, skip = z[..., :864], z[..., 864:1728], torch.randn(864, device=device)
+    fused = toeplitz_conv(u, h, skip, gate)
+    compare("toeplitz_conv", fused,
+            toeplitz_conv_plain(u.contiguous(), h.contiguous(), skip, gate.contiguous()),
+            torch.bfloat16, "B=1 L=1024 D=864 bfloat16 views of the projection")
+    if not torch.equal(fused, gate * toeplitz_conv(u, h, skip)):
+        raise RuntimeError("toeplitz_conv: gated output is not gate * ungated")
+    log("  toeplitz_conv: gated output equals gate * ungated bit for bit")
+    for bad, kw in ((u.half(), {}), (u, {"chunk": 512})):
+        try:
+            toeplitz_conv(bad, h, **kw)
+        except ValueError as e:
+            log(f"  refused: {e}")
+        else:
+            raise RuntimeError("toeplitz_conv accepted what it does not take")
+    return errs[0]
+
+
+def pool_is_free(cfg, pool) -> bool:
+    from repro_torch.models import lm
+
+    return all(
+        not leaf.any().item()
+        for axes, layer in zip(lm.cache_slot_axes(cfg, pool), pool)
+        for k, leaf in layer.items() if axes[k] >= 0
+    )
+
+
+def serve_engine(params, cfg, scfg, prompts, timed=False):
+    """Run the 8 requests through a fresh ServeEngine to the end of drain();
+    returns (engine, tokens per request, times).  With ``timed``, each
+    admission prefill and each pooled decode quantum is timed on the host
+    clock (both end in a device-to-host copy of the sampled tokens)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(params, cfg, scfg)
+    times = {"prefill": [], "decode": []}
+    if timed:
+        for name, attr in (("prefill", "prefill_into_slot"), ("decode", "decode_active")):
+            fn = getattr(eng, attr)
+
+            def wrapped(*args, _fn=fn, _t=times[name]):
+                t0 = time.perf_counter()
+                out = _fn(*args)
+                _t.append(time.perf_counter() - t0)
+                return out
+
+            setattr(eng, attr, wrapped)
+    rids = [eng.submit(p.cpu().numpy(), max_new_tokens=n)
+            for p, n in zip(prompts, ENGINE_HORIZONS)]
+    t0 = time.perf_counter()
+    out = eng.drain()
+    times["wall"] = time.perf_counter() - t0
+    return eng, [out[r] for r in rids], times
 
 
 def main() -> int:
@@ -222,11 +358,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
     from repro_torch.common.policy import Policy
     from repro_torch.configs import get_config
     from repro_torch.core.blockfft import blockfft_causal_conv, filter_spectrum, resolve_factors
     from repro_torch.core.fftconv import fft_causal_conv, next_fast_len
-    from repro_torch.kernels import build
+    from repro_torch.core.conv_api import ConvBackend, register_conv_backend
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
     from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
     from repro_torch.models import lm
     from repro_torch.models.mixer_api import ApplyContext
@@ -254,7 +394,8 @@ def main() -> int:
 
     # ---- phase 2: kernel against its plain version
     log("phase 2: kernels against their plain versions on the card")
-    served_err = check_kernel(device)
+    served_err = check_twolevel(device)
+    toeplitz_err = check_toeplitz(device)
 
     # ---- phase 3: the served path
     log(f"phase 3: {ARCH} at full width, generate() with blockfft_overlap, bf16")
@@ -265,15 +406,17 @@ def main() -> int:
     scfg = ServeConfig(max_len=MAX_LEN, conv_backend="blockfft_overlap")
     torch.cuda.synchronize()
     twolevel_fft_conv.launches = 0
+    toeplitz_conv.launches = 0
     t0 = time.perf_counter()
     tokens = generate(params, cfg, prompts, scfg=scfg, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     first_call_s = time.perf_counter() - t0
-    launches = twolevel_fft_conv.launches
+    launches, other = twolevel_fft_conv.launches, toeplitz_conv.launches
     want_launches = cfg.n_layers * cfg.hyena_order
     log(f"  generate: tokens {tuple(tokens.shape)}, twolevel_fft_conv launches "
-        f"{launches} (expected {want_launches}), first call {first_call_s:.2f} s")
-    if launches != want_launches:
+        f"{launches} (expected {want_launches}), toeplitz_conv launches {other}, "
+        f"first call {first_call_s:.2f} s")
+    if launches != want_launches or other:
         raise RuntimeError(f"prefill launched the kernel {launches} times, not {want_launches}")
     if tuple(tokens.shape) != (BATCH, NEW_TOKENS) or not (
         (tokens >= 0).all() and (tokens < cfg.vocab_size).all()
@@ -306,6 +449,67 @@ def main() -> int:
     log(f"  greedy first token of generate() equals argmax of the prefill logits: {agree}")
     if not agree:
         raise RuntimeError("generate's first token is not the prefill argmax")
+
+    # ---- phase 3b: the continuous-batching engine on the toeplitz kernel
+    log(f"phase 3b: {ARCH} at full width, ServeEngine with toeplitz, bf16, "
+        f"{len(ENGINE_PROMPTS)} greedy requests on {ENGINE_SLOTS} slots")
+    # the kernel's plain version as a backend, for the logits comparison
+    register_conv_backend(ConvBackend(
+        name="toeplitz_plain", fn=toeplitz_conv_plain, supports_gate=True,
+        description="plain PyTorch version of the toeplitz kernel",
+    ))
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    eprompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g, device=device)
+                for n in ENGINE_PROMPTS]
+    escfg = ServeConfig(max_len=MAX_LEN, n_slots=ENGINE_SLOTS, conv_backend="toeplitz")
+    torch.cuda.synchronize()
+    twolevel_fft_conv.launches = 0
+    toeplitz_conv.launches = 0
+    eng, etokens, etimes = serve_engine(params, cfg, escfg, eprompts)
+    torch.cuda.synchronize()
+    t_launches, other = toeplitz_conv.launches, twolevel_fft_conv.launches
+    want_t = cfg.n_layers * cfg.hyena_order * len(ENGINE_PROMPTS)
+    statuses = sorted({r.status for r in eng.request_results().values()})
+    log(f"  drain: {len(eng.request_results())} requests, statuses {statuses}, "
+        f"toeplitz_conv launches {t_launches} (expected {want_t} = "
+        f"{cfg.n_layers * cfg.hyena_order} per admission), twolevel_fft_conv launches "
+        f"{other}, quarantined {eng.health()['quarantined']}, first run {etimes['wall']:.2f} s")
+    if statuses != ["completed"] or len(eng.request_results()) != len(ENGINE_PROMPTS):
+        raise RuntimeError(f"engine requests ended {statuses}")
+    if t_launches != want_t or other:
+        raise RuntimeError(f"the engine launched toeplitz_conv {t_launches} times, not {want_t}")
+    for toks, n in zip(etokens, ENGINE_HORIZONS):
+        if len(toks) != n or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise RuntimeError("the engine returned malformed tokens")
+    free = pool_is_free(cfg, eng.pool)
+    log(f"  every per-slot cache leaf of the pool is zero after the drain: {free}")
+    if not free:
+        raise RuntimeError("the pool holds state after the drain")
+    with torch.no_grad():
+        one = eprompts[0][None]
+        lk, _ = lm.prefill(cast, cfg, one, MAX_LEN, dtype=torch.bfloat16,
+                           ctx=ApplyContext(conv_backend="toeplitz"))
+        lp, _ = lm.prefill(cast, cfg, one, MAX_LEN, dtype=torch.bfloat16,
+                           ctx=ApplyContext(conv_backend="toeplitz_plain"))
+    lk, lp = lk[:, -1].float(), lp[:, -1].float()
+    d = (lk - lp).abs()
+    log(f"  last-token logits of a {ENGINE_PROMPTS[0]}-token admission, toeplitz kernel vs "
+        f"its plain version: max_abs {d.max().item():.4f} mean_abs {d.mean().item():.5f} "
+        f"(tolerance {LOGITS_ATOL} / {LOGITS_MEAN_ATOL}); |logits| max {lp.abs().max().item():.3f}")
+    if not torch.isfinite(lk).all() or d.max().item() > LOGITS_ATOL or d.mean().item() > LOGITS_MEAN_ATOL:
+        raise RuntimeError("engine prefill logits disagree with the plain version")
+    if int(lk.argmax(-1)) != int(etokens[0][0]):
+        raise RuntimeError("the engine's first token is not the prefill argmax")
+    escfg32 = dataclasses.replace(escfg, cache_dtype=torch.float32)
+    _, tok32, _ = serve_engine(params, cfg, escfg32, eprompts)
+    same = 0
+    for toks, p, n in zip(tok32, eprompts, ENGINE_HORIZONS):
+        want = generate(params, cfg, p[None], scfg=escfg32, max_new_tokens=n)[0].cpu().numpy()
+        same += int(np.array_equal(toks, want))
+    log(f"  fp32: engine tokens identical to per-request generate() for {same} of "
+        f"{len(ENGINE_PROMPTS)} requests")
+    if same != len(ENGINE_PROMPTS):
+        raise RuntimeError("fp32 engine tokens differ from per-request generate()")
 
     # ---- phase 4: times
     log(f"phase 4: times on {card}")
@@ -347,17 +551,60 @@ def main() -> int:
         twolevel_fft_conv.launches = saved  # timing launches are not the path's
         p_ms = cuda_ms(lambda: blockfft_causal_conv(u, h, skip, gate))
         f_ms = cuda_ms(lambda: fft_causal_conv(u, h, skip, gate))
-    bound_ms, bound_by = twolevel_bound_ms(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16)
-    kbound_ms, kbound_by = twolevel_bound_ms(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16,
-                                             spectrum_given=True)
+    bound_ms, bound_by = conv_bound_ms(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16)
+    kbound_ms, kbound_by = conv_bound_ms(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16,
+                                         spectrum_given=True)
     log(f"  twolevel_fft_conv (B={BATCH}, L={PROMPT_LEN}, D={cfg.d_model}, bf16, gated): "
         f"{k_ms:.4f} ms/call with the filter spectrum, bound {bound_ms:.4f} ms by {bound_by} "
         f"({100 * bound_ms / k_ms:.2f} % of it); the kernel alone (H given) {kernel_ms:.4f} ms, "
         f"bound {kbound_ms:.4f} ms by {kbound_by} ({100 * kbound_ms / kernel_ms:.2f} %); "
         f"plain blockfft {p_ms:.4f} ms; torch.fft conv {f_ms:.4f} ms")
 
+    _, _, times = serve_engine(params, cfg, escfg, eprompts, timed=True)
+    new_tokens = sum(ENGINE_HORIZONS)
+    pre, dec = times["prefill"], times["decode"]
+    log(f"  engine (bf16, toeplitz, {ENGINE_SLOTS} slots, {len(ENGINE_PROMPTS)} requests, "
+        f"{new_tokens} new tokens): wall {times['wall']:.3f} s = "
+        f"{new_tokens / times['wall']:.1f} new tokens/s; admission prefill mean "
+        f"{1e3 * sum(pre) / len(pre):.2f} ms over {len(pre)} (each: "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in pre)} ms for L = {ENGINE_PROMPTS}); "
+        f"pooled decode step mean {1e3 * sum(dec) / len(dec):.2f} ms over {len(dec)} steps; "
+        f"prefill {100 * sum(pre) / times['wall']:.1f} % of the wall time")
+    with torch.no_grad():
+        device_profile(lambda: lm.prefill(cast, cfg, eprompts[0][None], MAX_LEN,
+                                          ctx=ApplyContext(conv_backend="toeplitz")),
+                       "admission prefill (toeplitz, L=1024)")
+
+    u, h, skip, gate = conv_inputs(1, PROMPT_LEN, cfg.d_model, torch.bfloat16, 8, device)
+    u4, h4, skip4, gate4 = conv_inputs(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16, 9, device)
+    with torch.no_grad():
+        saved = toeplitz_conv.launches
+        t_ms = cuda_ms(lambda: ops.toeplitz_conv(u, h, skip, gate))
+        t4_ms = cuda_ms(lambda: ops.toeplitz_conv(u4, h4, skip4, gate4))
+        toeplitz_conv.launches = saved  # timing launches are not the path's
+        tp_ms = cuda_ms(lambda: toeplitz_conv_plain(u, h, skip, gate))
+        tf_ms = cuda_ms(lambda: fft_causal_conv(u, h, skip, gate))
+    tb_ms, tb_by = conv_bound_ms(1, PROMPT_LEN, cfg.d_model, torch.bfloat16)
+    t4b_ms, _ = conv_bound_ms(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16)
+    log(f"  toeplitz_conv (B=1, L={PROMPT_LEN}, D={cfg.d_model}, bf16, gated): {t_ms:.4f} "
+        f"ms/call, bound {tb_ms:.4f} ms by {tb_by} ({100 * tb_ms / t_ms:.2f} % of it); plain "
+        f"{tp_ms:.4f} ms; torch.fft conv {tf_ms:.4f} ms; at B={BATCH}: {t4_ms:.4f} ms/call, "
+        f"bound {t4b_ms:.4f} ms")
+
     log(card)
     print(json.dumps({"kernels": [{
+        "name": "toeplitz_conv",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/toeplitz_conv.cu",
+        "replaces": "src/repro/kernels/toeplitz_conv.py:42",
+        "launches": t_launches,
+        "max_abs_err": toeplitz_err,
+        "ms": t_ms,
+        "plain_ms": tp_ms,
+        "bound_ms": tb_ms,
+        "bound_by": tb_by,
+        "library_ms": tf_ms,
+    }, {
         "name": "twolevel_fft_conv",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/twolevel_fft.cu",

@@ -8,10 +8,12 @@ gate in the §7 order (skip in fp32, downcast, gate); the others get it as a
 separate multiply, with the same result.
 
 Built-ins: ``fft`` (the default, as in JAX), ``fft_local``, ``direct``
-(the O(L²) oracle), ``blockfft`` (the plain four-step transform) and
+(the O(L²) oracle), ``blockfft`` (the plain four-step transform),
 ``blockfft_overlap`` (the two-level FFT conv kernel of
-``repro_torch.kernels.twolevel_fft``).  The JAX ``toeplitz`` and ``fft_sp``
-backends are not ported yet.  Resolution — including the
+``repro_torch.kernels.twolevel_fft``) and ``toeplitz`` (the chunked
+block-Toeplitz kernel of ``repro_torch.kernels.toeplitz_conv``, through
+``repro_torch.kernels.ops``).  The JAX ``fft_sp`` backend (context
+parallelism across a mesh) is not ported yet.  Resolution — including the
 ``REPRO_CONV_BACKEND`` environment override — goes through
 :func:`resolve_conv_backend`.
 """
@@ -123,6 +125,12 @@ def _blockfft_overlap(u, h, skip=None, gate=None):
     return twolevel_fft_conv(u, h, skip, gate)
 
 
+def _toeplitz(u, h, skip=None, gate=None):
+    from repro_torch.kernels import ops
+
+    return ops.toeplitz_conv(u, h, skip, gate)
+
+
 register_conv_backend(ConvBackend(
     name="fft", fn=_fft_local, supports_gate=True,
     description="O(L log L) torch.fft real FFT on fast-composite >= 2L-1 "
@@ -149,4 +157,10 @@ register_conv_backend(ConvBackend(
     description="two-level (inner R / outer S) FFT conv as one hand-written "
     "CUDA kernel per call (kernels/twolevel_fft.py); on CPU tensors its "
     "plain four-step version.",
+))
+register_conv_backend(ConvBackend(
+    name="toeplitz", fn=_toeplitz, supports_gate=True,
+    description="chunked block-Toeplitz causal conv (C = 128) as one "
+    "hand-written CUDA kernel per call (kernels/toeplitz_conv.py); on CPU "
+    "tensors its plain chunked version.",
 ))

@@ -10,7 +10,7 @@ convs is the mixer's prefill (``repro_torch.models.hyena``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -80,7 +80,8 @@ def init_decode_cache(cfg: HyenaConfig, batch: int, max_len: int,
 
 
 def hyena_decode_step(
-    params, cfg: HyenaConfig, u_t: torch.Tensor, cache: Dict[str, Any]
+    params, cfg: HyenaConfig, u_t: torch.Tensor, cache: Dict[str, Any],
+    active: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token: u_t (B, D) -> y_t (B, D), updated cache.
 
@@ -91,7 +92,10 @@ def hyena_decode_step(
 
     The operand history ``cache["long"]`` is written **in place** at
     position ``t`` (one row per order and batch row); the returned cache
-    holds the same tensor.  Taps come from ``cache["h"]``/``cache["skip"]``
+    holds the same tensor.  With ``active`` ((B,) bool), the rows where it
+    is False write their own history values back, so their bytes do not
+    change; the caller restores the other leaves (``lm.mask_slots``).
+    Taps come from ``cache["h"]``/``cache["skip"]``
     (stored by prefill or :func:`precompute_decode_filters`); without them
     the filters are evaluated on the cache's grid on every call.
     """
@@ -128,7 +132,11 @@ def hyena_decode_step(
         conv_y = hist_y[n] + v.float() * h0[n][None, :]
         v = xs[n] * conv_y.to(u_t.dtype)
     y = linear(params["out_proj"], v)
-    long[:, torch.arange(B, device=u_t.device), t] = torch.stack(vs)
+    rows = torch.arange(B, device=u_t.device)
+    new_rows = torch.stack(vs)  # (N, B, D)
+    if active is not None:
+        new_rows = torch.where(active[None, :, None], new_rows, long[:, rows, t])
+    long[:, rows, t] = new_rows
     out_cache = dict(cache)
     out_cache.update({"short": new_short, "long": long, "t": cache["t"] + 1})
     return y, out_cache

@@ -50,9 +50,9 @@ def block_prefill(
 
 
 def block_decode(
-    params, cfg: ModelConfig, mixer: str, x_t: torch.Tensor, cache
+    params, cfg: ModelConfig, mixer: str, x_t: torch.Tensor, cache, active=None
 ) -> Tuple[torch.Tensor, Any]:
     m = get_mixer(mixer)
     h = apply_norm(params["norm1"], x_t)
-    h, cache = m.decode_step(params["mixer"], m.make_config(cfg), h, cache)
+    h, cache = m.decode_step(params["mixer"], m.make_config(cfg), h, cache, active)
     return _channel(params, cfg, x_t + h), cache

@@ -1,7 +1,7 @@
 """Hyena as an LM token mixer (counterpart of ``repro/models/hyena.py``).
 
 Prefill runs the long convs of the prompt on the ``conv_backend``
-registration (``blockfft_overlap`` is the CUDA two-level FFT conv kernel);
+registration (``blockfft_overlap`` and ``toeplitz`` are CUDA kernels);
 decode steps are cached dots and have no backend dimension.
 """
 from __future__ import annotations
@@ -112,5 +112,13 @@ class HyenaMixer(TokenMixer):
             conv_backend=ctx.conv_backend_for(h.shape[1]),
         )
 
-    def decode_step(self, params, mc, h_t, cache):
-        return hyena_decode_step(params, mc, h_t, cache)
+    def decode_step(self, params, mc, h_t, cache, active=None):
+        return hyena_decode_step(params, mc, h_t, cache, active)
+
+    def cache_slot_axes(self, mc) -> dict:
+        # "long" stacks the per-order operand histories ahead of the batch
+        # dim; the decode filter taps "h"/"skip" depend only on params and
+        # the max_len grid, so the pool shares one copy across slots.  The
+        # port keeps one cache per layer (no scan stacking), so these axes
+        # are the leaves' own.
+        return {"long": 1, "h": -1, "skip": -1}

@@ -84,16 +84,89 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode_step(
     params, cfg: ModelConfig, token_t: torch.Tensor, caches: List[Any],
-    compute_dtype=torch.bfloat16,
+    compute_dtype=torch.bfloat16, active: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[Any]]:
     """One decode step: token_t (B,) -> (logits (B, V) fp32, new caches).
 
     The mixers update the large cache tensors in place (the Hyena operand
     history gains one row per step), so the caches passed in are consumed:
-    use the returned list from here on."""
+    use the returned list from here on.  With ``active`` ((B,) bool, the
+    slot-masked step of continuous batching), every per-slot cache row
+    where it is False keeps its bytes (scheduler invariant I3)."""
     x = embed(params["embed"], token_t, dtype=compute_dtype)  # (B, D)
     new = []
     for p, mixer, c in zip(params["blocks"], layer_mixers(cfg), caches):
-        x, c = B.block_decode(p, cfg, mixer, x, c)
+        x, c = B.block_decode(p, cfg, mixer, x, c, active)
         new.append(c)
+    if active is not None:
+        new = mask_slots(cfg, new, caches, active)
     return _logits(params, x), new
+
+
+# ----------------------------------------------------- cache slot pooling
+#
+# Continuous-batching serving (repro_torch.serve.engine.ServeEngine) keeps
+# ONE pooled cache list whose batch dim is a fixed pool of request slots.
+# These lift the per-mixer slot contract (TokenMixer.cache_slot_axes et al.)
+# over the LM's caches.  JAX stacks the caches of each pattern position for
+# lax.scan and shifts their slot axes by one; the port keeps a flat list of
+# per-layer caches, so the mixers' axes apply unshifted.  Insert and reset
+# write the pool in place.
+
+
+def _mixers(cfg: ModelConfig):
+    from repro_torch.models.mixer_api import get_mixer
+
+    for name in layer_mixers(cfg):
+        m = get_mixer(name)
+        yield m, m.make_config(cfg)
+
+
+def cache_slot_axes(cfg: ModelConfig, caches: List[Any]) -> List[Dict[str, int]]:
+    """Slot axis per leaf of every layer's cache; -1 = shared across slots
+    (e.g. hyena's decode filter taps)."""
+    out = []
+    for (m, mc), cache in zip(_mixers(cfg), caches):
+        spec = m.cache_slot_axes(mc)
+        out.append({k: spec.get(k, 0) for k in cache})
+    return out
+
+
+def make_slot_pool(cfg: ModelConfig, one_cache: List[Any], n_slots: int) -> List[Any]:
+    """An ``n_slots``-wide zeroed pool shaped like a single-request cache
+    (the first prefill's, batch 1); shared leaves keep one copy."""
+    pool = []
+    for axes, cache in zip(cache_slot_axes(cfg, one_cache), one_cache):
+        layer = {}
+        for k, leaf in cache.items():
+            if axes[k] < 0:
+                layer[k] = leaf
+            else:
+                shape = list(leaf.shape)
+                shape[axes[k]] = n_slots
+                layer[k] = leaf.new_zeros(shape)
+        pool.append(layer)
+    return pool
+
+
+def slot_insert(cfg: ModelConfig, caches: List[Any], slot: int, one: List[Any]) -> List[Any]:
+    """Copy a batch-1 cache (a fresh prefill's) into ``slot`` of the pool."""
+    return [m.cache_insert(mc, c, slot, o) for (m, mc), c, o in zip(_mixers(cfg), caches, one)]
+
+
+def slot_reset(cfg: ModelConfig, caches: List[Any], slot: int) -> List[Any]:
+    """Zero one slot across every per-slot leaf, so an evicted request's
+    state cannot leak into the slot's next occupant."""
+    return [m.cache_reset(mc, c, slot) for (m, mc), c in zip(_mixers(cfg), caches)]
+
+
+def mask_slots(cfg: ModelConfig, new_caches: List[Any], old_caches: List[Any],
+               active: torch.Tensor) -> List[Any]:
+    """Slot-masked cache update: keep ``new`` where ``active`` (bool (S,)),
+    ``old`` elsewhere, so free slots hold exactly their reset state.  A leaf
+    the step updated in place is the same tensor in both lists; the step
+    kept its inactive rows itself."""
+    return [
+        m.cache_mask(mc, n, o, active)
+        for (m, mc), n, o in zip(_mixers(cfg), new_caches, old_caches)
+    ]

@@ -1,16 +1,23 @@
 """Pluggable TokenMixer API (counterpart of ``repro/models/mixer_api.py``).
 
 A :class:`TokenMixer` bundles what the block/LM/serve layers need from a
-mixer — ``make_config``, ``init``, ``init_cache``, ``prefill`` and
-``decode_step`` — and an :class:`ApplyContext` carries the per-call
-execution options.  The port's registry holds the mixers ported so far:
-``hyena``.
+mixer — ``make_config``, ``init``, ``init_cache``, ``prefill``,
+``decode_step`` and the cache-slot contract of continuous batching
+(``cache_slot_axes`` and the slot slice / insert / reset / mask ops) — and
+an :class:`ApplyContext` carries the per-call execution options.  The
+port's registry holds the mixers ported so far: ``hyena``.
+
+The slot ops differ from JAX's pure functions in one way: insert and reset
+write into the pooled cache in place (PyTorch has no buffer donation, and a
+copy of the pool per admission would double its traffic), and return it.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 # modules that register their mixers on import, loaded lazily
 _BUILTIN_MODULES = ("repro_torch.models.hyena",)
@@ -60,9 +67,85 @@ class TokenMixer:
         """Full-sequence forward that also returns a populated cache."""
         raise NotImplementedError
 
-    def decode_step(self, params, mc, h_t, cache) -> Tuple[Any, Any]:
-        """One token: (B, D) -> (B, D), updated cache."""
+    def decode_step(self, params, mc, h_t, cache, active=None) -> Tuple[Any, Any]:
+        """One token: (B, D) -> (B, D), updated cache.
+
+        ``active`` is None or a (B,) bool tensor.  Where it is False, a cache
+        leaf that the step writes *in place* must keep its bytes (write the
+        row's own values back); the leaves it replaces are restored by
+        :func:`slot_mask_leaf` (``lm.mask_slots``)."""
         raise NotImplementedError
+
+    # ------------------------------------------------------ cache-slot contract
+    def cache_slot_axes(self, mc) -> Dict[str, int]:
+        """Slot (batch) axis per cache key.  Missing keys default to axis
+        0; ``-1`` marks a leaf shared across slots (never sliced/reset)."""
+        return {}
+
+    def cache_slice(self, mc, cache, slot: int):
+        """One slot of a pooled cache as a batch-1 cache (views)."""
+        axes = self.cache_slot_axes(mc)
+        return {k: slot_slice_leaf(v, slot, axes.get(k, 0)) for k, v in cache.items()}
+
+    def cache_insert(self, mc, cache, slot: int, one):
+        """Copy a batch-1 cache (a fresh prefill's) into ``slot`` of the
+        pooled cache, in place.  Shared leaves take the incoming value — it
+        is identical for every request (same params, same max_len grid)."""
+        axes = self.cache_slot_axes(mc)
+        return {
+            k: slot_insert_leaf(v, one[k], slot, axes.get(k, 0))
+            for k, v in cache.items()
+        }
+
+    def cache_reset(self, mc, cache, slot: int):
+        """Zero one slot in place, so an evicted request's state cannot
+        leak into the slot's next occupant."""
+        axes = self.cache_slot_axes(mc)
+        return {k: slot_zero_leaf(v, slot, axes.get(k, 0)) for k, v in cache.items()}
+
+    def cache_mask(self, mc, new, old, active):
+        """Keep ``new`` on active slots and ``old`` elsewhere."""
+        axes = self.cache_slot_axes(mc)
+        return {
+            k: slot_mask_leaf(v, old[k], active, axes.get(k, 0))
+            for k, v in new.items()
+        }
+
+
+# ------------------------------------------------------ slot-contract leaf ops
+#
+# The single implementation of per-leaf slot slice / insert / zero / mask.
+# ``axis < 0`` marks a leaf shared across slots: never sliced, inserted over
+# wholesale, never reset or masked.
+
+def slot_slice_leaf(leaf, slot: int, axis: int):
+    if axis < 0:
+        return leaf
+    return leaf.narrow(axis, slot, 1)
+
+
+def slot_insert_leaf(leaf, new, slot: int, axis: int):
+    if axis < 0:
+        return new.to(leaf.dtype)
+    leaf.narrow(axis, slot, 1).copy_(new)
+    return leaf
+
+
+def slot_zero_leaf(leaf, slot: int, axis: int):
+    if axis >= 0:
+        leaf.narrow(axis, slot, 1).zero_()
+    return leaf
+
+
+def slot_mask_leaf(new, old, active, axis: int):
+    """``new`` where ``active`` (bool (S,)) along the slot axis, ``old``
+    elsewhere.  A leaf the step wrote in place is the same tensor in both
+    trees and passes through: its writer kept the inactive rows."""
+    if axis < 0 or new is old:
+        return new
+    shape = [1] * new.dim()
+    shape[axis] = active.shape[0]
+    return torch.where(active.reshape(shape), new, old)
 
 
 _REGISTRY: Dict[str, TokenMixer] = {}

@@ -1,10 +1,21 @@
 """Token sampling for batched decode (counterpart of
-``repro/serve/sampling.py``).  Greedy decoding is the argmax (ties to the
-lower token id, as ``jnp.argmax``); sampled decoding draws from a
-``torch.Generator``, so its tokens cannot match JAX's key streams."""
+``repro/serve/sampling.py``).
+
+Two entry points share one masking core:
+
+  * :func:`sample` — one (temperature, top_k) for the whole batch (the
+    static ``generate`` path).
+  * :func:`sample_slots` — per-row temperature / top_k / generator, used by
+    the continuous-batching engine where every slot is an independent
+    request with its own sampling params and random stream.
+
+Greedy decoding is the argmax (ties to the lower token id, as
+``jnp.argmax``); sampled decoding draws from ``torch.Generator``s, so its
+tokens cannot match JAX's key streams.
+"""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -33,3 +44,24 @@ def sample(
         logits = top_k_mask(logits, top_k)
     probs = torch.softmax(logits.float(), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def sample_slots(
+    logits: torch.Tensor,  # (S, V)
+    temperature: Sequence[float],  # (S,); <= 0 -> greedy for that slot
+    top_k: Sequence[int],  # (S,); 0 -> no truncation
+    generators: Sequence[Optional[torch.Generator]],  # (S,); None for greedy rows
+) -> torch.Tensor:
+    """Per-slot sampling: each row draws with its own temperature, top-k and
+    generator, so a row's token depends on nothing but its own logits and
+    stream (not on the other slots of the pool).  Returns (S,) int64."""
+    out = torch.argmax(logits, dim=-1)
+    for s, temp in enumerate(temperature):
+        if temp <= 0.0:
+            continue
+        row = logits[s : s + 1] / max(float(temp), 1e-6)
+        if top_k[s] > 0:
+            row = top_k_mask(row, int(top_k[s]))
+        probs = torch.softmax(row.float(), dim=-1)
+        out[s] = torch.multinomial(probs, 1, generator=generators[s])[0, 0]
+    return out

@@ -275,8 +275,9 @@ def test_resolve_conv_backend(monkeypatch):
     monkeypatch.setenv(ENV_VAR, "nope")
     with pytest.raises(ValueError, match=r"\$REPRO_CONV_BACKEND"):
         resolve_conv_backend()
+    assert get_conv_backend("toeplitz").supports_gate
     with pytest.raises(ValueError, match="registered"):
-        get_conv_backend("toeplitz")
+        get_conv_backend("fft_sp")  # context parallelism: not ported yet
 
 
 @pytest.mark.parametrize("order", [2, 3])

@@ -12,8 +12,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.blockfft import blockfft_causal_conv
 from repro_torch.core.blockfft import filter_spectrum
+from repro_torch.kernels import ops
+from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
 from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
-from repro_torch.serve.engine import ServeConfig, generate
+from repro_torch.serve.engine import ServeConfig, ServeEngine, generate
 from repro_torch.models import lm
 
 pytestmark = pytest.mark.cuda
@@ -107,3 +109,71 @@ def test_generate_on_cuda_launches_the_kernel_per_order_and_layer(cuda):
         launched = twolevel_fft_conv.launches - before
         assert launched == (cfg.n_layers * cfg.hyena_order if backend == "blockfft_overlap" else 0)
     assert torch.equal(out["blockfft_overlap"], out["blockfft"])
+
+
+# (B, L, D, n_chunk_diags): the shapes the engine's admissions give the
+# toeplitz kernel (L below the chunk, L = 1, L not a multiple of 128) and a
+# banded call with a ragged channel tile
+TOEPLITZ_SHAPES = [
+    (1, 1024, 864, None), (4, 1024, 864, None), (1, 1000, 864, None),
+    (1, 37, 864, None), (1, 1, 864, None), (2, 300, 865, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,D,K", TOEPLITZ_SHAPES)
+def test_toeplitz_kernel_matches_plain(cuda, dtype, B, L, D, K):
+    u, h, skip, gate = _inputs(B, L, D, dtype, cuda, seed=L + D)
+    rtol, atol = TOL[dtype]
+    for sk, g in ((skip, gate), (skip, None), (None, None), (None, gate)):
+        got = toeplitz_conv(u, h, sk, g, n_chunk_diags=K)
+        want = toeplitz_conv_plain(u, h, sk, g, n_chunk_diags=K)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+        assert got.dtype == dtype and got.shape == u.shape
+    fused = toeplitz_conv(u, h, skip, gate, n_chunk_diags=K)
+    assert torch.equal(fused, gate * toeplitz_conv(u, h, skip, n_chunk_diags=K))
+
+
+def test_toeplitz_kernel_takes_views_counts_launches_and_refuses(cuda):
+    """The model path hands the kernel torch.split views of the projection
+    and the max_len filter sliced to L; the kernel reads them in place."""
+    B, L, D = 2, 300, 40
+    z = torch.randn(B, L, 3 * D, device=cuda)
+    hbig = torch.randn(D, 512, device=cuda) / L
+    u, gate, h = z[..., :D], z[..., D:2 * D], hbig[:, :L]
+    before = toeplitz_conv.launches
+    got = ops.toeplitz_conv(u, h, None, gate, chunk=64)
+    assert toeplitz_conv.launches == before + 1
+    want = toeplitz_conv_plain(u.contiguous(), h.contiguous(), None, gate.contiguous(), chunk=64)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        toeplitz_conv(u.half(), h)
+    with pytest.raises(ValueError, match="fp32 h"):
+        toeplitz_conv(u, h.bfloat16())
+    with pytest.raises(ValueError, match="last dim"):
+        toeplitz_conv(u.transpose(1, 2).contiguous().transpose(1, 2), h)
+    with pytest.raises(ValueError, match="at most 256"):
+        toeplitz_conv(u, h, chunk=300)
+    assert toeplitz_conv.launches == before + 1
+
+
+def test_engine_on_cuda_launches_toeplitz_per_admission(cuda):
+    """Every admission of the continuous-batching engine is one batch-1
+    prefill: n_layers·order kernel launches, and the greedy tokens equal
+    the per-request generate()."""
+    cfg = get_config("hyena-153m").reduced()
+    params = lm.init_lm(cfg, seed=0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), device=cuda, generator=g) for n in (1, 37, 100)]
+    scfg = ServeConfig(max_len=128, n_slots=2, decode_quantum=2,
+                       cache_dtype=torch.float32, conv_backend="toeplitz")
+    before = toeplitz_conv.launches
+    eng = ServeEngine(params, cfg, scfg)
+    rids = [eng.submit(p.cpu().numpy(), max_new_tokens=5) for p in prompts]
+    out = eng.drain()
+    assert toeplitz_conv.launches - before == cfg.n_layers * cfg.hyena_order * len(prompts)
+    for rid, p in zip(rids, prompts):
+        want = generate(params, cfg, p[None], scfg=scfg, max_new_tokens=5)[0].cpu().numpy()
+        assert out[rid].tolist() == want.tolist()
+    for axes, layer in zip(lm.cache_slot_axes(cfg, eng.pool), eng.pool):
+        assert all(not v.any() for k, v in layer.items() if axes[k] >= 0)

@@ -40,10 +40,12 @@ def free_jax_programs():
 def jax_and_torch_model(arch: str, seed: int = 0):
     """(jax cfg, jax values, torch cfg, torch params on CPU) of the reduced
     ``arch``, the torch weights bridged from the JAX ones.  Made once per
-    process (the JAX init compiles op by op, ~8 s); tests only read them."""
+    process, with the JAX init jitted (~3 s; op by op it takes ~7 s); tests
+    only read them."""
     jcfg = jax_get_config(arch).reduced()
     tcfg = torch_get_config(arch).reduced()
-    values, _ = split_params(jax_lm.init_lm(jax.random.PRNGKey(seed), jcfg))
+    init = jax.jit(jax_lm.init_lm, static_argnums=1)
+    values, _ = split_params(init(jax.random.PRNGKey(seed), jcfg))
     np_values = jax.tree_util.tree_map(np.asarray, values)
     return jcfg, values, tcfg, from_jax_values(np_values, tcfg, device="cpu")
 
