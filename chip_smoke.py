@@ -14,7 +14,9 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes the served paths give it (and a non-power-of-two split, a ragged
    channel tile, a banded Toeplitz call, gated and ungated, skip or not,
-   fp32 and bf16); print each max error beside its tolerance and raise
+   fp32 and bf16; for the flash attention kernel MHA, MQA, Dh 64 and 256, a
+   window, a ragged L, decode offsets, rows that see no key, the mixer's
+   transposed views); print each max error beside its tolerance and raise
    past it.  Float32 matmuls run in full fp32
    (``torch.backends.cuda.matmul.allow_tf32 = False``).
 3. The served path: hyena-153m at full width (18 layers, D=864, order 2,
@@ -36,9 +38,19 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    last-token logits of a 1024-token prefill on ``toeplitz`` must agree
    with the kernel's plain version on the card.  The same requests at
    fp32 must give exactly the tokens of per-request ``generate()``.
+3c. The attention family: phi4-mini-3.8b at full width (32 layers,
+   D=3072, 24 query and 8 KV heads of 128, SwiGLU d_ff=8192, vocab
+   200064) with weights from a seed, ``generate()`` with
+   ``ServeConfig(max_len=2048)`` in bf16, 4 requests of 1024-token
+   prompts, 32 greedy new tokens.  The counters (0 just before, read just
+   after) must show exactly n_layers = 32 ``flash_attention`` launches and
+   none of the conv kernels; a bare prefill, counted the same way, must
+   launch it 32 times too.  Its last-token logits must be finite and agree
+   with the same prefill through the kernel's plain version, swapped in
+   for that comparison within this process.
 4. Times (CUDA events; the host clock around synchronised work for the
    served paths): prefill ms, decode ms per step and tokens/s of
-   ``generate()``; the engine's wall time, new tokens/s, ms per admission
+   ``generate()`` for hyena-153m and for phi4-mini; the engine's wall time, new tokens/s, ms per admission
    prefill and per pooled decode step; each kernel's ms per call (``ms``:
    the wrapper; for the FFT conv it computes the filter spectrum in plain
    PyTorch and launches the kernel, ``kernel_ms`` is the kernel alone)
@@ -46,7 +58,14 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    (``library_ms``) and its bound: the larger of the bytes the function
    must move over 3.35 TB/s and an FFT conv's fp32 operations (a banded
    call: the band's products) over 67 TFLOP/s, the H100 SXM's published
-   peaks.
+   peaks.  phi4-mini's prefill also with the kernel's plain version and
+   with ``scaled_dot_product_attention`` in the kernel's place (a
+   yardstick).  The flash kernel's ms at phi4-mini's served shape, beside its
+   plain version, ``scaled_dot_product_attention`` (``library_ms``, a
+   yardstick the port never calls) and its bound: the larger of q, k, v
+   and o moved once over 3.35 TB/s and the visible (query, key) pairs'
+   4·Dh operations over the tensor cores' 989 TFLOP/s (bf16; 67 TFLOP/s
+   for fp32 inputs).
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -65,6 +84,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 
 ARCH = "hyena-153m"
 BATCH, PROMPT_LEN, MAX_LEN, NEW_TOKENS = 4, 1024, 2048, 32
@@ -73,12 +93,17 @@ SEED = 0
 ENGINE_SLOTS = 4
 ENGINE_PROMPTS = (1024, 1000, 768, 512, 333, 200, 97, 1)
 ENGINE_HORIZONS = (32, 8, 24, 16, 32, 12, 20, 28)
+# phase 3c: the attention family at the static batch's shape
+ATTN_ARCH = "phi4-mini-3.8b"
 
 # kernel against plain version: bf16 outputs may land one bf16 ulp apart
 # (2^-7 of the value) where the fp32 sums straddle a rounding boundary, and
 # the gate multiply adds its own rounding; fp32 outputs differ only by the
 # order of the DFT sums.
 TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -6, 2.0 ** -10)}  # (rtol, atol)
+# flash attention against its plain version: fp32 outputs differ only by
+# the order of the fp32 sums; bf16 as above, without a gate
+FLASH_TOLERANCE = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -10)}
 # served-path logits, kernel against plain version, both bf16: the conv
 # outputs' one-ulp differences feed 18 bf16 residual layers; logits are
 # ~N(0, 1) at init
@@ -199,7 +224,7 @@ def conv_bound_ms(B, L, D, dtype, *, gated=True, skip=True, spectrum_given=False
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name, got, want, dtype, label):
+def compare(name, got, want, dtype, label, tolerance=TOLERANCE):
     """Max abs error of a kernel's output against its plain version, raised
     past the stated tolerance."""
     import torch
@@ -208,7 +233,7 @@ def compare(name, got, want, dtype, label):
     if not torch.isfinite(got.float()).all():
         raise RuntimeError(f"{name} output not finite at {label}")
     diff = (got.float() - want.float()).abs()
-    rtol, atol = TOLERANCE[str(dtype).split(".")[-1]]
+    rtol, atol = tolerance[str(dtype).split(".")[-1]]
     excess = (diff - rtol * want.float().abs()).max().item()
     err = diff.max().item()
     log(f"  {name} {label}: max_abs_err={err:.3e} (tolerance {atol:g} + {rtol:g}·|plain|)")
@@ -313,6 +338,116 @@ def check_toeplitz(device) -> float:
     return errs[0]
 
 
+def flash_bound_ms(B, H, Hkv, Lq, Lk, Dh, dtype, *, causal=True, window=None,
+                   q_offset=None):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    one attention call.  The larger of
+      bytes: q and o (B·H·Lq·Dh each) and k and v (B·Hkv·Lk·Dh each) in
+        ``dtype``, each moved once, over the memory rate;
+      operations: 4·Dh per visible (query, key) pair and head (q·kᵀ and
+        p·v, a multiply and an add each), counted for this call's mask,
+        over the tensor cores' bf16 rate (the fp32 rate for fp32 inputs)."""
+    import numpy as np
+
+    esize = 2 if str(dtype).endswith("bfloat16") else 4
+    nbytes = 2 * B * Dh * esize * (H * Lq + Hkv * Lk)
+    qpos = np.arange(Lq) + (Lk - Lq if q_offset is None else q_offset)
+    hi = np.minimum(qpos + 1, Lk) if causal else np.full(Lq, Lk)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(Lq, int)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    flops = 4.0 * Dh * B * H * pairs
+    peak = PEAK_BF16_FLOPS if esize == 2 else PEAK_FP32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash(device) -> float:
+    """Phase 2, kernel 3; returns the max abs error at phi4-mini's served
+    shape (B=4, H=24, Hkv=8, L=1024, Dh=128, bf16)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    cases = [
+        # (B, H, Hkv, Lq, Lk, Dh, dtype, window, causal)
+        (BATCH, 24, 8, PROMPT_LEN, PROMPT_LEN, 128, torch.bfloat16, None, True),  # served
+        (BATCH, 24, 8, PROMPT_LEN, PROMPT_LEN, 128, torch.float32, None, True),
+        (2, 8, 8, 512, 512, 128, torch.bfloat16, None, True),  # MHA
+        (2, 8, 8, 512, 512, 128, torch.float32, None, True),
+        (2, 8, 1, 300, 300, 128, torch.bfloat16, None, True),  # MQA, ragged L
+        (2, 8, 1, 300, 300, 128, torch.float32, None, True),
+        (2, 4, 2, 256, 256, 64, torch.bfloat16, None, True),  # Dh 64
+        (2, 4, 2, 256, 256, 64, torch.float32, None, True),
+        (1, 10, 1, 1000, 1000, 256, torch.bfloat16, None, True),  # Dh 256, ragged L
+        (1, 10, 1, 1000, 1000, 256, torch.float32, None, True),
+        (2, 8, 2, PROMPT_LEN, PROMPT_LEN, 128, torch.bfloat16, 100, True),  # window < L
+        (1, 4, 1, 600, 600, 256, torch.float32, 128, True),
+        (2, 24, 8, 1, 1000, 128, torch.bfloat16, None, True),  # decode offsets
+        (2, 24, 8, 7, 1000, 128, torch.float32, None, True),
+        (2, 24, 8, 7, 1000, 128, torch.bfloat16, None, True),
+        (1, 4, 2, 100, 40, 64, torch.float32, None, True),  # 60 rows see no key
+        (1, 4, 2, 70, 90, 128, torch.bfloat16, 33, False),  # no causal mask
+    ]
+    errs = []
+    for i, (B, H, Hkv, Lq, Lk, Dh, dtype, window, causal) in enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(300 + i)
+        q = torch.randn(B, H, Lq, Dh, generator=g, device=device).to(dtype)
+        k = torch.randn(B, Hkv, Lk, Dh, generator=g, device=device).to(dtype)
+        v = torch.randn(B, Hkv, Lk, Dh, generator=g, device=device).to(dtype)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        errs.append(compare(
+            "flash_attention", got,
+            flash_attention_plain(q, k, v, causal=causal, window=window), dtype,
+            f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} Dh={Dh} {str(dtype)[6:]} "
+            f"window={window} causal={causal}", FLASH_TOLERANCE,
+        ))
+        if Lq > Lk and got[:, :, : Lq - Lk].any():
+            raise RuntimeError("flash_attention: a row that sees no key is not 0")
+    # the mixer's operands: (B, L, H, Dh) projections transposed, read in place
+    g = torch.Generator(device=device).manual_seed(9)
+    H, Hkv, Dh = 24, 8, 128
+    qkv = torch.randn(BATCH, PROMPT_LEN, (H + 2 * Hkv) * Dh, generator=g, device=device).bfloat16()
+    q, k, v = (x.view(BATCH, PROMPT_LEN, -1, Dh).transpose(1, 2)
+               for x in qkv.split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1))
+    compare("flash_attention", flash_attention(q, k, v, q_offset=3),
+            flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), q_offset=3),
+            torch.bfloat16, "B=4 L=1024 bf16 transposed views, q_offset=3", FLASH_TOLERANCE)
+    for bad in ((q[..., :96], k[..., :96], v[..., :96]), (q[:, :23], k, v)):
+        try:
+            flash_attention(*bad)
+        except ValueError as e:
+            log(f"  refused: {e}")
+        else:
+            raise RuntimeError("flash_attention accepted what it does not take")
+    return errs[0]
+
+
+def swapped_attention(fn, run):
+    """``run()`` with ``kernels.ops.flash_attention`` replaced by ``fn`` in
+    this process only: the kernel's plain version for a comparison, or the
+    library yardstick for a timing."""
+    from repro_torch.kernels import ops
+
+    dispatch = ops.flash_attention
+    ops.flash_attention = fn
+    try:
+        return run()
+    finally:
+        ops.flash_attention = dispatch
+
+
+def sdpa_prefill_attention(q, k, v, *, causal=True, window=None, scale=None, q_offset=None):
+    """``scaled_dot_product_attention`` in the flash kernel's place, for the
+    causal prefill of a global-attention model only (a yardstick: the port
+    never calls it)."""
+    import torch
+
+    if not causal or window is not None or q.shape[2] != k.shape[2] or q_offset:
+        raise ValueError("the yardstick takes a causal prefill without a window or offset")
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale, enable_gqa=True)
+
+
 def pool_is_free(cfg, pool) -> bool:
     from repro_torch.models import lm
 
@@ -366,6 +501,7 @@ def main() -> int:
     from repro_torch.core.fftconv import fft_causal_conv, next_fast_len
     from repro_torch.core.conv_api import ConvBackend, register_conv_backend
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
     from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
     from repro_torch.models import lm
@@ -396,6 +532,10 @@ def main() -> int:
     log("phase 2: kernels against their plain versions on the card")
     served_err = check_twolevel(device)
     toeplitz_err = check_toeplitz(device)
+    flash_err = check_flash(device)
+
+    def zero_counts():
+        twolevel_fft_conv.launches = toeplitz_conv.launches = flash_attention.launches = 0
 
     # ---- phase 3: the served path
     log(f"phase 3: {ARCH} at full width, generate() with blockfft_overlap, bf16")
@@ -405,16 +545,16 @@ def main() -> int:
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=g, device=device)
     scfg = ServeConfig(max_len=MAX_LEN, conv_backend="blockfft_overlap")
     torch.cuda.synchronize()
-    twolevel_fft_conv.launches = 0
-    toeplitz_conv.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     tokens = generate(params, cfg, prompts, scfg=scfg, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     first_call_s = time.perf_counter() - t0
-    launches, other = twolevel_fft_conv.launches, toeplitz_conv.launches
+    launches = twolevel_fft_conv.launches
+    other = toeplitz_conv.launches + flash_attention.launches
     want_launches = cfg.n_layers * cfg.hyena_order
     log(f"  generate: tokens {tuple(tokens.shape)}, twolevel_fft_conv launches "
-        f"{launches} (expected {want_launches}), toeplitz_conv launches {other}, "
+        f"{launches} (expected {want_launches}), other kernels' launches {other}, "
         f"first call {first_call_s:.2f} s")
     if launches != want_launches or other:
         raise RuntimeError(f"prefill launched the kernel {launches} times, not {want_launches}")
@@ -463,16 +603,16 @@ def main() -> int:
                 for n in ENGINE_PROMPTS]
     escfg = ServeConfig(max_len=MAX_LEN, n_slots=ENGINE_SLOTS, conv_backend="toeplitz")
     torch.cuda.synchronize()
-    twolevel_fft_conv.launches = 0
-    toeplitz_conv.launches = 0
+    zero_counts()
     eng, etokens, etimes = serve_engine(params, cfg, escfg, eprompts)
     torch.cuda.synchronize()
-    t_launches, other = toeplitz_conv.launches, twolevel_fft_conv.launches
+    t_launches = toeplitz_conv.launches
+    other = twolevel_fft_conv.launches + flash_attention.launches
     want_t = cfg.n_layers * cfg.hyena_order * len(ENGINE_PROMPTS)
     statuses = sorted({r.status for r in eng.request_results().values()})
     log(f"  drain: {len(eng.request_results())} requests, statuses {statuses}, "
         f"toeplitz_conv launches {t_launches} (expected {want_t} = "
-        f"{cfg.n_layers * cfg.hyena_order} per admission), twolevel_fft_conv launches "
+        f"{cfg.n_layers * cfg.hyena_order} per admission), other kernels' launches "
         f"{other}, quarantined {eng.health()['quarantined']}, first run {etimes['wall']:.2f} s")
     if statuses != ["completed"] or len(eng.request_results()) != len(ENGINE_PROMPTS):
         raise RuntimeError(f"engine requests ended {statuses}")
@@ -510,6 +650,65 @@ def main() -> int:
         f"{len(ENGINE_PROMPTS)} requests")
     if same != len(ENGINE_PROMPTS):
         raise RuntimeError("fp32 engine tokens differ from per-request generate()")
+
+    # ---- phase 3c: the attention family on the flash kernel
+    acfg = get_config(ATTN_ARCH)
+    log(f"phase 3c: {ATTN_ARCH} at full width ({acfg.n_layers} layers, D={acfg.d_model}, "
+        f"H={acfg.n_heads}, Hkv={acfg.n_kv_heads}, Dh={acfg.head_dim}, {acfg.mlp} "
+        f"d_ff={acfg.d_ff}, vocab {acfg.vocab_size}), generate() in bf16")
+    aparams = lm.init_lm(acfg, seed=SEED, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    aprompts = torch.randint(0, acfg.vocab_size, (BATCH, PROMPT_LEN), generator=g, device=device)
+    ascfg = ServeConfig(max_len=MAX_LEN)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    atokens = generate(aparams, acfg, aprompts, scfg=ascfg, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    a_first_s = time.perf_counter() - t0
+    f_launches = flash_attention.launches
+    other = twolevel_fft_conv.launches + toeplitz_conv.launches
+    log(f"  generate: tokens {tuple(atokens.shape)}, flash_attention launches {f_launches} "
+        f"(expected {acfg.n_layers}), conv kernels' launches {other}, first call "
+        f"{a_first_s:.2f} s")
+    if f_launches != acfg.n_layers or other:
+        raise RuntimeError(f"the attention path launched flash_attention {f_launches} times, "
+                           f"not {acfg.n_layers}")
+    if tuple(atokens.shape) != (BATCH, NEW_TOKENS) or not (
+        (atokens >= 0).all() and (atokens < acfg.vocab_size).all()
+    ):
+        raise RuntimeError("generate returned malformed tokens")
+    acast = Policy().cast_compute(aparams)
+
+    def aprefill():
+        return lm.prefill(acast, acfg, aprompts, MAX_LEN, dtype=torch.bfloat16)
+
+    with torch.no_grad():
+        zero_counts()
+        alogits, acaches = aprefill()
+        torch.cuda.synchronize()
+        bare = flash_attention.launches
+        alast_k = alogits[:, -1].float()
+        del alogits
+        alogits, _ = swapped_attention(flash_attention_plain, aprefill)
+        alast_p = alogits[:, -1].float()
+        del alogits
+    torch.cuda.synchronize()
+    log(f"  a bare prefill launched flash_attention {bare} times (expected {acfg.n_layers})")
+    if bare != acfg.n_layers:
+        raise RuntimeError("the prefill did not launch flash_attention once per layer")
+    if not torch.isfinite(alast_k).all():
+        raise RuntimeError("phi4-mini prefill logits are not finite")
+    d = (alast_k - alast_p).abs()
+    log(f"  last-token logits, kernel vs its plain version: max_abs {d.max().item():.4f} "
+        f"mean_abs {d.mean().item():.5f} (tolerance {LOGITS_ATOL} / {LOGITS_MEAN_ATOL}); "
+        f"|logits| max {alast_p.abs().max().item():.3f}")
+    if d.max().item() > LOGITS_ATOL or d.mean().item() > LOGITS_MEAN_ATOL:
+        raise RuntimeError("phi4-mini logits disagree with the plain version")
+    agree = (alast_k.argmax(-1) == atokens[:, 0]).all().item()
+    log(f"  greedy first token of generate() equals argmax of the prefill logits: {agree}")
+    if not agree:
+        raise RuntimeError("generate's first token is not the prefill argmax")
 
     # ---- phase 4: times
     log(f"phase 4: times on {card}")
@@ -591,8 +790,75 @@ def main() -> int:
         f"{tp_ms:.4f} ms; torch.fft conv {tf_ms:.4f} ms; at B={BATCH}: {t4_ms:.4f} ms/call, "
         f"bound {t4b_ms:.4f} ms")
 
+    # phi4-mini: the served path and the flash kernel at its shape
+    with torch.no_grad():
+        a_prefill_ms = cuda_ms(aprefill, iters=3, warmup=1)
+        a_prefill_plain_ms = swapped_attention(
+            flash_attention_plain, lambda: cuda_ms(aprefill, iters=3, warmup=1))
+        a_prefill_sdpa_ms = swapped_attention(
+            sdpa_prefill_attention, lambda: cuda_ms(aprefill, iters=3, warmup=1))
+        tok = alast_k.argmax(-1)
+        steps = 16
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lg, acaches = lm.decode_step(acast, acfg, tok, acaches)
+            tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        a_decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+        t0 = time.perf_counter()
+        generate(aparams, acfg, aprompts, scfg=ascfg, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        a_generate_s = time.perf_counter() - t0
+    log(f"  {ATTN_ARCH} prefill (B={BATCH}, L={PROMPT_LEN}): {a_prefill_ms:.2f} ms with the "
+        f"kernel, {a_prefill_plain_ms:.2f} ms with its plain version, {a_prefill_sdpa_ms:.2f} ms "
+        f"with scaled_dot_product_attention in its place (a yardstick)")
+    log(f"  {ATTN_ARCH} decode: {a_decode_ms:.2f} ms/step = {BATCH * 1e3 / a_decode_ms:.1f} "
+        f"tokens/s (B={BATCH}, cache {MAX_LEN})")
+    log(f"  {ATTN_ARCH} generate (prefill + {NEW_TOKENS} tokens): {a_generate_s:.3f} s = "
+        f"{BATCH * NEW_TOKENS / a_generate_s:.1f} new tokens/s")
+    with torch.no_grad():
+        device_profile(aprefill, f"{ATTN_ARCH} prefill")
+        lg, acaches = lm.decode_step(acast, acfg, tok, acaches)
+        device_profile(lambda: lm.decode_step(acast, acfg, tok, acaches),
+                       f"{ATTN_ARCH} decode step")
+
+    # the served shape, in the layout the mixer hands the kernel
+    H, Hkv, Dh = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
+    g = torch.Generator(device=device).manual_seed(10)
+    qkv = torch.randn(BATCH, PROMPT_LEN, (H + 2 * Hkv) * Dh, generator=g, device=device).bfloat16()
+    q, k, v = (x.view(BATCH, PROMPT_LEN, -1, Dh).transpose(1, 2)
+               for x in qkv.split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    with torch.no_grad():
+        saved = flash_attention.launches
+        fa_ms = cuda_ms(lambda: flash_attention(q, k, v))
+        flash_attention.launches = saved  # timing launches are not the path's
+        fp_ms = cuda_ms(lambda: flash_attention_plain(q, k, v))
+        fl_ms = cuda_ms(sdpa)
+        d_lib = (sdpa().float() - flash_attention_plain(q, k, v).float()).abs().max().item()
+    fb_ms, fb_by = flash_bound_ms(BATCH, H, Hkv, PROMPT_LEN, PROMPT_LEN, Dh, torch.bfloat16)
+    log(f"  flash_attention (B={BATCH}, H={H}, Hkv={Hkv}, L={PROMPT_LEN}, Dh={Dh}, bf16, "
+        f"causal, transposed views): {fa_ms:.4f} ms/call, bound {fb_ms:.4f} ms by {fb_by} "
+        f"({100 * fb_ms / fa_ms:.2f} % of it); plain {fp_ms:.4f} ms; "
+        f"scaled_dot_product_attention {fl_ms:.4f} ms (its max abs difference from the "
+        f"plain version {d_lib:.3e})")
+
     log(card)
     print(json.dumps({"kernels": [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": f_launches,
+        "max_abs_err": flash_err,
+        "ms": fa_ms,
+        "plain_ms": fp_ms,
+        "bound_ms": fb_ms,
+        "bound_by": fb_by,
+        "library_ms": fl_ms,
+    }, {
         "name": "toeplitz_conv",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/toeplitz_conv.cu",

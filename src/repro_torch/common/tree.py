@@ -13,3 +13,12 @@ def tree_map(fn: Callable, tree: Any) -> Any:
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
+
+
+def tree_leaves(tree: Any) -> list:
+    """Every leaf, in the order :func:`tree_map` visits them."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]

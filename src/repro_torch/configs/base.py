@@ -127,9 +127,11 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless the port can build ``cfg``: every mixer of the pattern
-    registered in the port's mixer registry, an RMSNorm, a dense GELU MLP
-    (or none), an untied head and no frontend — the Hyena LMs of Table A.4.
-    Called wherever a model is built."""
+    registered in the port's mixer registry (``hyena``, ``attention``,
+    ``local_attention``), an RMSNorm, a dense MLP of a known kind (or
+    none), an untied head and no frontend.  Called wherever a model is
+    built."""
+    from repro_torch.models.layers import MLP_KINDS
     from repro_torch.models.mixer_api import get_mixer
 
     for m in cfg.pattern:
@@ -137,7 +139,7 @@ def check_supported(cfg: ModelConfig) -> None:
     unported = {
         "moe": cfg.moe,
         f"norm={cfg.norm}": cfg.norm != "rmsnorm",
-        f"mlp={cfg.mlp}": cfg.d_ff > 0 and cfg.mlp != "gelu",
+        f"mlp={cfg.mlp}": cfg.d_ff > 0 and cfg.mlp not in MLP_KINDS,
         "tie_embeddings": cfg.tie_embeddings,
         f"frontend={cfg.frontend}": cfg.frontend is not None,
     }

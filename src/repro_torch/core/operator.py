@@ -10,10 +10,12 @@ convs is the mixer's prefill (``repro_torch.models.hyena``).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.common.tree import tree_leaves
 from repro_torch.core import filters as F
 
 
@@ -79,6 +81,37 @@ def init_decode_cache(cfg: HyenaConfig, batch: int, max_len: int,
     }
 
 
+# Memo for decode steps whose cache holds no taps (a cache from
+# ``lm.init_caches`` rather than from a prefill): the taps of given
+# (filter tensors, filter config, cache length) are evaluated on the first
+# such step and reused, instead of re-running the filter FFN over the whole
+# cache grid on every token.  Keyed by the tensors' ids; each entry holds a
+# weakref per tensor whose callback evicts it when the tensor is freed, and
+# a hit must find every tensor still alive, the same object (an id can be
+# reused) and at the same version (an in-place update re-evaluates).
+_FALLBACK_TAPS: Dict[tuple, tuple] = {}
+
+
+def _fallback_decode_taps(params, cfg: HyenaConfig, Lc: int):
+    leaves = tree_leaves(params["filters"])
+    evaluate = lambda: (
+        F.evaluate_filters(params["filters"], cfg.filter, Lc),
+        F.filter_skip(params["filters"], cfg.filter),
+    )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return evaluate()  # taps that carry a graph would keep their params alive
+    key = (cfg.filter, Lc, tuple(id(t) for t in leaves))
+    hit = _FALLBACK_TAPS.get(key)
+    if hit is not None and all(
+        r() is t and t._version == v for (r, v), t in zip(hit[0], leaves)
+    ):
+        return hit[1]
+    taps = evaluate()
+    evict = lambda _, k=key: _FALLBACK_TAPS.pop(k, None)
+    _FALLBACK_TAPS[key] = (tuple((weakref.ref(t, evict), t._version) for t in leaves), taps)
+    return taps
+
+
 def hyena_decode_step(
     params, cfg: HyenaConfig, u_t: torch.Tensor, cache: Dict[str, Any],
     active: Optional[torch.Tensor] = None,
@@ -97,7 +130,8 @@ def hyena_decode_step(
     change; the caller restores the other leaves (``lm.mask_slots``).
     Taps come from ``cache["h"]``/``cache["skip"]``
     (stored by prefill or :func:`precompute_decode_filters`); without them
-    the filters are evaluated on the cache's grid on every call.
+    they are evaluated on the cache's grid once per filter tensors and
+    memoized (:func:`_fallback_decode_taps`).
     """
     B, Dm = u_t.shape
     N = cfg.order
@@ -106,8 +140,7 @@ def hyena_decode_step(
     h = cache.get("h")
     skip = cache.get("skip")
     if h is None:
-        h = F.evaluate_filters(params["filters"], cfg.filter, Lc)
-        skip = F.filter_skip(params["filters"], cfg.filter)
+        h, skip = _fallback_decode_taps(params, cfg, Lc)
     # --- projection + short conv over the rolling window
     z = linear(params["in_proj"], u_t)
     w = params["short_filter"]  # (inner, K)

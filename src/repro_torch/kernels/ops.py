@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import toeplitz_conv as _tc
 
 
@@ -28,3 +29,19 @@ def toeplitz_conv(
     ``n_chunk_diags`` chunk diagonals when given."""
     fn = _tc.toeplitz_conv_plain if u.device.type == "cpu" else _tc.toeplitz_conv
     return fn(u, h, skip, gate, chunk=chunk, n_chunk_diags=n_chunk_diags)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, H, Lq, Dh)
+    k: torch.Tensor,  # (B, Hkv, Lk, Dh)
+    v: torch.Tensor,  # (B, Hkv, Lk, Dh)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal / windowed GQA softmax attention, query row i at position
+    ``q_offset + i`` (default ``Lk − Lq``); a row that sees no key gives 0."""
+    fn = _fa.flash_attention_plain if q.device.type == "cpu" else _fa.flash_attention
+    return fn(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)

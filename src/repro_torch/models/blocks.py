@@ -1,5 +1,5 @@
 """Transformer-family block: RMSNorm → token mixer → residual, RMSNorm →
-GELU MLP → residual (counterpart of ``repro/models/blocks.py``).  Every mixer
+channel MLP of kind ``cfg.mlp`` → residual (counterpart of ``repro/models/blocks.py``).  Every mixer
 operation goes through the ``mixer_api`` registry; this module names no
 mixer."""
 from __future__ import annotations
@@ -21,7 +21,7 @@ def init_block(cfg: ModelConfig, mixer: str, gen: torch.Generator, device) -> Di
     }
     if cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg.d_model, device)
-        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, gen, device)
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, gen, device, cfg.mlp)
     return p
 
 
@@ -34,7 +34,7 @@ def init_block_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
 def _channel(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.d_ff == 0:
         return x
-    return x + apply_mlp(params["mlp"], apply_norm(params["norm2"], x))
+    return x + apply_mlp(params["mlp"], apply_norm(params["norm2"], x), cfg.mlp)
 
 
 def block_prefill(

@@ -5,7 +5,8 @@ mixer — ``make_config``, ``init``, ``init_cache``, ``prefill``,
 ``decode_step`` and the cache-slot contract of continuous batching
 (``cache_slot_axes`` and the slot slice / insert / reset / mask ops) — and
 an :class:`ApplyContext` carries the per-call execution options.  The
-port's registry holds the mixers ported so far: ``hyena``.
+port's registry holds the mixers ported so far: ``hyena``, ``attention``
+and ``local_attention``.
 
 The slot ops differ from JAX's pure functions in one way: insert and reset
 write into the pooled cache in place (PyTorch has no buffer donation, and a
@@ -20,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 # modules that register their mixers on import, loaded lazily
-_BUILTIN_MODULES = ("repro_torch.models.hyena",)
+_BUILTIN_MODULES = ("repro_torch.models.hyena", "repro_torch.models.attention")
 
 
 @dataclasses.dataclass(frozen=True)

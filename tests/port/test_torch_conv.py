@@ -299,3 +299,52 @@ def test_decode_continues_prefill(order):
         y, cache = hyena_decode_step(params, cfg, x[:, step], cache)
         torch.testing.assert_close(y, want[:, step], rtol=1e-4, atol=1e-4)
     assert cache["t"].tolist() == [L] * B
+
+
+def test_decode_without_taps_evaluates_the_filters_once(monkeypatch):
+    """Decoding from ``lm.init_caches`` (no taps in the cache) evaluates each
+    layer's filters once over two steps, with the same logits as taps
+    precomputed by hand; replacing a layer's filter tensors, or updating
+    one in place, evaluates that layer's filters anew."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.mixer_api import get_mixer
+
+    cfg = get_config("hyena-153m").reduced()
+    params = lm.init_lm(cfg, seed=0, device="cpu")
+    calls = []
+    evaluate = TF.evaluate_filters
+
+    def counted(p, fc, n):
+        calls.append(n)
+        return evaluate(p, fc, n)
+
+    monkeypatch.setattr(TF, "evaluate_filters", counted)
+    tok = torch.tensor([3, 7])
+
+    def two_steps(caches):
+        for _ in range(2):
+            logits, caches = lm.decode_step(params, cfg, tok, caches, compute_dtype=torch.float32)
+        return logits
+
+    fresh = lambda: lm.init_caches(cfg, 2, 16, torch.float32, "cpu")
+    got = two_steps(fresh())
+    assert calls == [16] * cfg.n_layers
+    mc = get_mixer("hyena").make_config(cfg)
+    calls.clear()
+    with_taps = [precompute_decode_filters(p["mixer"], mc, 16, c)
+                 for p, c in zip(params["blocks"], fresh())]
+    assert torch.equal(two_steps(with_taps), got)
+    assert calls == [16] * cfg.n_layers  # precompute_decode_filters' own
+    calls.clear()
+    two_steps(fresh())
+    assert calls == []  # memoized
+    mixer0 = params["blocks"][0]["mixer"]
+    mixer0["filters"] = tree_map(torch.clone, mixer0["filters"])
+    assert torch.equal(two_steps(fresh()), got)
+    assert calls == [16]  # the replaced tensors of layer 0
+    with torch.no_grad():
+        params["blocks"][1]["mixer"]["filters"]["decay_log_rate"].add_(0.0)
+    two_steps(fresh())
+    assert calls == [16, 16]  # the in-place update of layer 1

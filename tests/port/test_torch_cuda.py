@@ -6,6 +6,8 @@ them on the card with
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -13,6 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.blockfft import blockfft_causal_conv
 from repro_torch.core.blockfft import filter_spectrum
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
 from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
 from repro_torch.serve.engine import ServeConfig, ServeEngine, generate
@@ -177,3 +180,86 @@ def test_engine_on_cuda_launches_toeplitz_per_admission(cuda):
         assert out[rid].tolist() == want.tolist()
     for axes, layer in zip(lm.cache_slot_axes(cfg, eng.pool), eng.pool):
         assert all(not v.any() for k, v in layer.items() if axes[k] >= 0)
+
+
+# (B, H, Hkv, Lq, Lk, Dh, window, causal): the served shape of phi4-mini,
+# MHA, MQA, Dh 64 and 256, a window shorter than L, a ragged L, decode
+# offsets (Lq = 1 and 7 against Lk = 1000), rows that see no key (Lq > Lk)
+# and a call without the causal mask
+FLASH_CASES = [
+    (4, 24, 8, 1024, 1024, 128, None, True),
+    (2, 8, 8, 512, 512, 128, None, True),
+    (2, 8, 1, 300, 300, 128, None, True),
+    (2, 4, 2, 256, 256, 64, None, True),
+    (1, 4, 1, 257, 257, 256, None, True),
+    (1, 8, 2, 1024, 1024, 128, 100, True),
+    (1, 4, 1, 600, 600, 256, 128, True),
+    (2, 8, 2, 1000, 1000, 128, None, True),
+    (2, 24, 8, 1, 1000, 128, None, True),
+    (2, 24, 8, 7, 1000, 128, None, True),
+    (1, 4, 2, 100, 40, 64, None, True),
+    (1, 4, 2, 70, 90, 128, 33, False),
+]
+# (rtol, atol): fp32 outputs differ by the order of the fp32 sums; bf16
+# outputs may land one bf16 ulp (2^-7 of the value) apart
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -6, 2.0 ** -10)}
+
+
+def _qkv(B, H, Hkv, Lq, Lk, Dh, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda h, n: torch.randn(B, h, n, Dh, generator=g, device=device).to(dtype)
+    return mk(H, Lq), mk(Hkv, Lk), mk(Hkv, Lk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,Dh,window,causal", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, B, H, Hkv, Lq, Lk, Dh, window, causal):
+    q, k, v = _qkv(B, H, Hkv, Lq, Lk, Dh, dtype, cuda, seed=Lq + Lk + Dh)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert got.dtype == dtype and got.shape == q.shape
+    if Lq > Lk:
+        assert not got[:, :, : Lq - Lk].any()
+
+
+def test_flash_kernel_takes_views_counts_launches_and_refuses(cuda):
+    """The mixer hands the kernel its (B, L, H, Dh) projections transposed,
+    and a free query offset; the kernel reads them in place."""
+    B, L, H, Hkv, Dh = 2, 130, 6, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(B, L, (H + 2 * Hkv) * Dh, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv.split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    q, k, v = (x.view(B, L, -1, Dh).transpose(1, 2) for x in (q, k, v))
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, q_offset=5, window=40)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 q_offset=5, window=40)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -6, atol=2.0 ** -10)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(*_qkv(1, 2, 1, 8, 8, 96, torch.bfloat16, cuda))
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention(*_qkv(1, 3, 2, 8, 8, 64, torch.bfloat16, cuda))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        flash_attention(*_qkv(1, 2, 1, 8, 8, 64, torch.float16, cuda))
+    assert flash_attention.launches == before + 1
+
+
+def test_generate_on_cuda_launches_flash_once_per_layer(cuda, monkeypatch):
+    """Reduced phi4-mini with head_dim 64 (the kernel takes Dh in {64, 128,
+    256}; ``reduced()`` gives 16): one kernel launch per layer in the
+    prefill, none in decode, and the same greedy tokens as the plain version
+    at fp32."""
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b").reduced(), head_dim=64)
+    params = lm.init_lm(cfg, seed=0, device=cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 100), device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(1))
+    scfg = ServeConfig(max_len=128, cache_dtype=torch.float32)
+    before = flash_attention.launches
+    got = generate(params, cfg, prompts, scfg=scfg, max_new_tokens=6)
+    assert flash_attention.launches - before == cfg.n_layers
+    monkeypatch.setattr(ops, "flash_attention", flash_attention_plain)
+    want = generate(params, cfg, prompts, scfg=scfg, max_new_tokens=6)
+    assert torch.equal(got, want)
