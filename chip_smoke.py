@@ -18,7 +18,14 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    window, a ragged L, decode offsets, rows that see no key, the mixer's
    transposed views); print each max error beside its tolerance and raise
    past it.  Float32 matmuls run in full fp32
-   (``torch.backends.cuda.matmul.allow_tf32 = False``).
+   (``torch.backends.cuda.matmul.allow_tf32 = False``).  The short conv
+   kernel at hyena-153m's projection (B=4, L=1024, (N+1)·D = 2592, K=3,
+   bf16, gated and ungated) and at K=1, K=4, K=8 with L < K−1, L=1, a
+   ragged D, fp32, a bf16 w and views of a wider projection; RMSNorm at
+   hyena-153m's (4, 1024, 864) and phi4-mini's (4, 1024, 3072) rows in
+   bf16 and at one row, D=5, D=1, a 4-D input, D=8192, fp32, a bf16 g,
+   rows read through a row stride and rows of zeros.  Each also refuses
+   what it does not take (fp16, a non-unit-stride last dim, K > 8).
 3. The served path: hyena-153m at full width (18 layers, D=864, order 2,
    vocab 50257) with weights from a seed, ``generate()`` with
    ``ServeConfig(max_len=2048, conv_backend="blockfft_overlap")`` in bf16,
@@ -48,6 +55,15 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    launch it 32 times too.  Its last-token logits must be finite and agree
    with the same prefill through the kernel's plain version, swapped in
    for that comparison within this process.
+   Every model path above must launch neither the short conv nor the
+   RMSNorm kernel: no model routes through them.
+3d. The ops entry point, the only path of the short conv and RMSNorm
+   kernels: with the counters at 0, ``kernels.ops.short_conv_gate`` on
+   hyena-153m's projection with the first layer's ``short_filter``, gated
+   and ungated, and ``kernels.ops.rmsnorm`` on hyena-153m's and
+   phi4-mini's rows, in bf16.  The counters must show exactly one launch
+   per call, and each output must be finite, of the input's shape and
+   dtype, and agree with the plain version.
 4. Times (CUDA events; the host clock around synchronised work for the
    served paths): prefill ms, decode ms per step and tokens/s of
    ``generate()`` for hyena-153m and for phi4-mini; the engine's wall time, new tokens/s, ms per admission
@@ -65,7 +81,15 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    yardstick the port never calls) and its bound: the larger of q, k, v
    and o moved once over 3.35 TB/s and the visible (query, key) pairs'
    4·Dh operations over the tensor cores' 989 TFLOP/s (bf16; 67 TFLOP/s
-   for fp32 inputs).
+   for fp32 inputs).  The short conv and RMSNorm kernels at the shapes of
+   phase 3d, each call on one of several input sets that together exceed
+   the 50 MB L2 cache (a caller finds them cold): the wrapper's ms by CUDA
+   events and the kernel's device ms by ``torch.profiler``, beside the
+   plain version, a library yardstick the port never calls
+   (``F.conv1d(groups=D)`` with causal padding, then the gate;
+   ``F.rms_norm(weight=1+g)``) and the bound, the bytes the function must
+   move (u, the gate and the output, or x and y, once; w or g once) over
+   3.35 TB/s.
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -104,6 +128,14 @@ TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -6, 2.0 ** -10)}  # (r
 # flash attention against its plain version: fp32 outputs differ only by
 # the order of the fp32 sums; bf16 as above, without a gate
 FLASH_TOLERANCE = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -10)}
+# short conv against its plain version: the kernel's fp32 sums equal the
+# plain version's bit for bit (the same products, each rounded before its
+# add, in the same order), so bf16 outputs agree too; the bound stated is
+# one bf16 ulp (at most 2^-7 of the value)
+SHORT_CONV_TOLERANCE = {"float32": (1e-6, 1e-6), "bfloat16": (2.0 ** -7, 2.0 ** -10)}
+# RMSNorm against its plain version: the sum of squares is taken in another
+# order (fp32); bf16 outputs may land one bf16 ulp apart
+NORM_TOLERANCE = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -10)}
 # served-path logits, kernel against plain version, both bf16: the conv
 # outputs' one-ulp differences feed 18 bf16 residual layers; logits are
 # ~N(0, 1) at init
@@ -422,6 +454,202 @@ def check_flash(device) -> float:
     return errs[0]
 
 
+def short_conv_inputs(B, L, D, K, dtype, seed, device, w_dtype=None):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.randn(B, L, D, generator=g, device=device).to(dtype)
+    w = (torch.randn(D, K, generator=g, device=device) / K ** 0.5).to(w_dtype or torch.float32)
+    gate = torch.randn(B, L, D, generator=g, device=device).to(dtype)
+    return u, w, gate
+
+
+def short_conv_bound_ms(B, L, D, K, dtype, *, gated, w_dtype=None):
+    """(ms, "bytes" or "operations"): the least time of one short conv
+    call.  The larger of
+      bytes: u, the output and the gate (if ``gated``) in ``dtype`` and w
+        (D·K) in its dtype, each moved once, over the memory rate;
+      operations: a multiply and an add per tap and output, and a multiply
+        for the gate, over the fp32 rate."""
+    esize = 2 if str(dtype).endswith("bfloat16") else 4
+    wsize = 2 if str(w_dtype).endswith("bfloat16") else 4
+    nbytes = (2 + gated) * B * L * D * esize + D * K * wsize
+    flops = B * L * D * (2 * K + gated)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rmsnorm_bound_ms(rows, D, dtype, g_dtype):
+    """(ms, "bytes" or "operations"): the least time of one RMSNorm call.
+    The larger of
+      bytes: x and y (rows·D) in ``dtype`` and g (D) in ``g_dtype``, each
+        moved once, over the memory rate;
+      operations: per element a square and an add, a scale, 1 + g and a
+        multiply, over the fp32 rate."""
+    esize = 2 if str(dtype).endswith("bfloat16") else 4
+    gsize = 2 if str(g_dtype).endswith("bfloat16") else 4
+    nbytes = 2 * rows * D * esize + D * gsize
+    flops = 5 * rows * D
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_short_conv(device) -> float:
+    """Phase 2, kernel 4; returns the max abs error at hyena-153m's
+    projection (B=4, L=1024, 2592 channels, K=3, bf16, gated)."""
+    import torch
+
+    from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # (B, L, D, K, dtype, gated, w dtype)
+        (BATCH, PROMPT_LEN, 2592, 3, bf16, True, f32),  # hyena-153m's projection
+        (BATCH, PROMPT_LEN, 2592, 3, bf16, False, f32),
+        (BATCH, PROMPT_LEN, 2592, 3, f32, True, f32),
+        (2, 300, 2592, 1, bf16, True, f32),  # K = 1
+        (2, 300, 2592, 4, f32, False, f32),  # K = 4
+        (2, 300, 2592, 4, bf16, True, f32),
+        (2, 5, 64, 8, bf16, True, bf16),  # K = 8, L < K - 1, bf16 w
+        (3, 1, 2592, 3, bf16, True, f32),  # L = 1
+        (2, 100, 33, 3, f32, True, f32),  # ragged D
+        (2, 100, 33, 3, bf16, False, bf16),
+    ]
+    errs = []
+    for i, (B, L, D, K, dtype, gated, w_dtype) in enumerate(cases):
+        u, w, gate = short_conv_inputs(B, L, D, K, dtype, 400 + i, device, w_dtype)
+        gate = gate if gated else None
+        errs.append(compare(
+            "short_conv_gate", short_conv_gate(u, w, gate), short_conv_gate_plain(u, w, gate),
+            dtype, f"B={B} L={L} D={D} K={K} {str(dtype)[6:]} gate={gated} "
+            f"w={str(w_dtype)[6:]}", SHORT_CONV_TOLERANCE,
+        ))
+    # views of a wider projection and a transposed w, read in place
+    g = torch.Generator(device=device).manual_seed(11)
+    z = torch.randn(BATCH, PROMPT_LEN, 3 * 864, generator=g, device=device).bfloat16()
+    u, gate = z[..., :864], z[..., 864:1728]
+    w = torch.randn(3, 864, generator=g, device=device).t()
+    compare("short_conv_gate", short_conv_gate(u, w, gate),
+            short_conv_gate_plain(u.contiguous(), w.contiguous(), gate.contiguous()),
+            torch.bfloat16, "B=4 L=1024 D=864 bfloat16 views of a projection, w transposed",
+            SHORT_CONV_TOLERANCE)
+    before = short_conv_gate.launches
+    for bad_u, bad_w in ((u.half(), w), (u.transpose(1, 2).contiguous().transpose(1, 2), w),
+                         (u, torch.randn(864, 9, device=device))):
+        try:
+            short_conv_gate(bad_u, bad_w)
+        except ValueError as e:
+            log(f"  refused: {e}")
+        else:
+            raise RuntimeError("short_conv_gate accepted what it does not take")
+    if short_conv_gate.launches != before:
+        raise RuntimeError("a refused short_conv_gate call counted a launch")
+    return errs[0]
+
+
+def check_rmsnorm(device) -> float:
+    """Phase 2, kernel 5; returns the max abs error at hyena-153m's rows
+    (4, 1024, 864) in bf16."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # (shape, dtype, g dtype)
+        ((BATCH, PROMPT_LEN, 864), bf16, f32),  # hyena-153m
+        ((BATCH, PROMPT_LEN, 3072), bf16, f32),  # phi4-mini-3.8b
+        ((BATCH, PROMPT_LEN, 864), f32, f32),
+        ((BATCH, PROMPT_LEN, 3072), f32, bf16),
+        ((1, 3072), bf16, bf16),  # one row
+        ((3, 7, 5), f32, f32),  # D = 5
+        ((17, 1), bf16, f32),  # D = 1
+        ((2, 3, 4, 864), bf16, f32),  # 4-D
+        ((3, 8192), f32, f32),  # qwen2-72b's d_model
+        ((3, 8192), bf16, f32),
+    ]
+    errs = []
+    for i, (shape, dtype, g_dtype) in enumerate(cases):
+        gen = torch.Generator(device=device).manual_seed(500 + i)
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        x.view(-1, shape[-1])[0] = 0
+        g = (0.5 * torch.randn(shape[-1], generator=gen, device=device)).to(g_dtype)
+        got = rmsnorm(x, g)
+        errs.append(compare("rmsnorm", got, rmsnorm_plain(x, g), dtype,
+                            f"x {shape} {str(dtype)[6:]} g {str(g_dtype)[6:]}", NORM_TOLERANCE))
+        if got.view(-1, shape[-1])[0].any():
+            raise RuntimeError("rmsnorm: a row of zeros does not give zeros")
+    # rows of a wider tensor, read through their row stride: 16-byte aligned
+    # (128-bit loads) and not (one element at a time)
+    gen = torch.Generator(device=device).manual_seed(12)
+    wide = torch.randn(BATCH, PROMPT_LEN, 1000, generator=gen, device=device).bfloat16()
+    g = torch.randn(864, generator=gen, device=device)
+    for start in (0, 1):
+        x = wide[..., start:start + 864]
+        compare("rmsnorm", rmsnorm(x, g, eps=1e-5), rmsnorm_plain(x.contiguous(), g, eps=1e-5),
+                torch.bfloat16, f"x (4, 1024, 864) bfloat16 rows of stride 1000 from element "
+                f"{start}, eps 1e-5", NORM_TOLERANCE)
+    before = rmsnorm.launches
+    for bad_x, bad_g in ((x.half(), g), (x.transpose(1, 2), torch.zeros(PROMPT_LEN, device=device)),
+                         (x, g.half())):
+        try:
+            rmsnorm(bad_x, bad_g)
+        except ValueError as e:
+            log(f"  refused: {e}")
+        else:
+            raise RuntimeError("rmsnorm accepted what it does not take")
+    if rmsnorm.launches != before:
+        raise RuntimeError("a refused rmsnorm call counted a launch")
+    return errs[0]
+
+
+def conv1d_short_conv(u, w_flipped, gate):
+    """The short conv as ``F.conv1d`` over channels-first views with causal
+    padding, then the gate in u's dtype (a yardstick: the port never calls
+    it).  ``w_flipped`` is (D, 1, K), the taps reversed, in u's dtype."""
+    import torch.nn.functional as F
+
+    K = w_flipped.shape[-1]
+    y = F.conv1d(u.transpose(1, 2), w_flipped, padding=K - 1, groups=u.shape[-1])
+    y = y[..., : u.shape[1]].transpose(1, 2)
+    return y if gate is None else y * gate
+
+
+def cold_ms(fn, arg_sets, iters: int = 24, warmup: int = 3) -> float:
+    """``cuda_ms`` of ``fn(*args)`` with each call on the next of
+    ``arg_sets``, whose bytes together exceed the L2 cache."""
+    calls = [0]
+
+    def step():
+        fn(*arg_sets[calls[0] % len(arg_sets)])
+        calls[0] += 1
+
+    return cuda_ms(step, iters=iters, warmup=warmup)
+
+
+def kernel_device_ms(fn, arg_sets, kernel_name: str, iters: int = 24):
+    """Device time per launch of the kernels whose name holds
+    ``kernel_name``, traced by torch.profiler over ``iters`` calls of
+    ``fn`` cycling over ``arg_sets``; None where the trace holds no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if kernel_name in e.key and str(e.device_type).endswith("CUDA"):
+            us += (getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0))
+            n += e.count
+    return us / n / 1e3 if n and us else None
+
+
 def swapped_attention(fn, run):
     """``run()`` with ``kernels.ops.flash_attention`` replaced by ``fn`` in
     this process only: the kernel's plain version for a comparison, or the
@@ -502,6 +730,8 @@ def main() -> int:
     from repro_torch.core.conv_api import ConvBackend, register_conv_backend
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
     from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
     from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
     from repro_torch.models import lm
@@ -533,9 +763,12 @@ def main() -> int:
     served_err = check_twolevel(device)
     toeplitz_err = check_toeplitz(device)
     flash_err = check_flash(device)
+    short_conv_err = check_short_conv(device)
+    norm_err = check_rmsnorm(device)
 
     def zero_counts():
         twolevel_fft_conv.launches = toeplitz_conv.launches = flash_attention.launches = 0
+        short_conv_gate.launches = rmsnorm.launches = 0
 
     # ---- phase 3: the served path
     log(f"phase 3: {ARCH} at full width, generate() with blockfft_overlap, bf16")
@@ -551,7 +784,8 @@ def main() -> int:
     torch.cuda.synchronize()
     first_call_s = time.perf_counter() - t0
     launches = twolevel_fft_conv.launches
-    other = toeplitz_conv.launches + flash_attention.launches
+    other = (toeplitz_conv.launches + flash_attention.launches + short_conv_gate.launches
+             + rmsnorm.launches)
     want_launches = cfg.n_layers * cfg.hyena_order
     log(f"  generate: tokens {tuple(tokens.shape)}, twolevel_fft_conv launches "
         f"{launches} (expected {want_launches}), other kernels' launches {other}, "
@@ -607,7 +841,8 @@ def main() -> int:
     eng, etokens, etimes = serve_engine(params, cfg, escfg, eprompts)
     torch.cuda.synchronize()
     t_launches = toeplitz_conv.launches
-    other = twolevel_fft_conv.launches + flash_attention.launches
+    other = (twolevel_fft_conv.launches + flash_attention.launches + short_conv_gate.launches
+             + rmsnorm.launches)
     want_t = cfg.n_layers * cfg.hyena_order * len(ENGINE_PROMPTS)
     statuses = sorted({r.status for r in eng.request_results().values()})
     log(f"  drain: {len(eng.request_results())} requests, statuses {statuses}, "
@@ -667,12 +902,14 @@ def main() -> int:
     torch.cuda.synchronize()
     a_first_s = time.perf_counter() - t0
     f_launches = flash_attention.launches
-    other = twolevel_fft_conv.launches + toeplitz_conv.launches
+    other = (twolevel_fft_conv.launches + toeplitz_conv.launches + short_conv_gate.launches
+             + rmsnorm.launches)
     log(f"  generate: tokens {tuple(atokens.shape)}, flash_attention launches {f_launches} "
-        f"(expected {acfg.n_layers}), conv kernels' launches {other}, first call "
+        f"(expected {acfg.n_layers}), other kernels' launches {other}, first call "
         f"{a_first_s:.2f} s")
     if f_launches != acfg.n_layers or other:
-        raise RuntimeError(f"the attention path launched flash_attention {f_launches} times, "
+        raise RuntimeError(f"the attention path launched flash_attention {f_launches} times "
+                           f"and other kernels {other} times, "
                            f"not {acfg.n_layers}")
     if tuple(atokens.shape) != (BATCH, NEW_TOKENS) or not (
         (atokens >= 0).all() and (atokens < acfg.vocab_size).all()
@@ -709,6 +946,40 @@ def main() -> int:
     log(f"  greedy first token of generate() equals argmax of the prefill logits: {agree}")
     if not agree:
         raise RuntimeError("generate's first token is not the prefill argmax")
+
+    # ---- phase 3d: the ops entry point of the short conv and RMSNorm kernels
+    log("phase 3d: kernels.ops.short_conv_gate and kernels.ops.rmsnorm at full width, bf16")
+    w_sc = params["blocks"][0]["mixer"]["short_filter"]  # (inner, K) fp32
+    sc_D, sc_K = w_sc.shape
+    u_sc, _, gate_sc = short_conv_inputs(BATCH, PROMPT_LEN, sc_D, sc_K, torch.bfloat16, 13, device)
+    gen = torch.Generator(device=device).manual_seed(14)
+    norm_in = [(torch.randn(BATCH, PROMPT_LEN, d, generator=gen, device=device).bfloat16(),
+                0.1 * torch.randn(d, generator=gen, device=device))
+               for d in (cfg.d_model, acfg.d_model)]
+    torch.cuda.synchronize()
+    zero_counts()
+    with torch.no_grad():
+        sc_out = [ops.short_conv_gate(u_sc, w_sc, gate_sc), ops.short_conv_gate(u_sc, w_sc)]
+        norm_out = [ops.rmsnorm(x, g) for x, g in norm_in]
+    torch.cuda.synchronize()
+    sc_launches, norm_launches = short_conv_gate.launches, rmsnorm.launches
+    other = twolevel_fft_conv.launches + toeplitz_conv.launches + flash_attention.launches
+    log(f"  2 short conv calls (B={BATCH}, L={PROMPT_LEN}, {sc_D} channels, K={sc_K}, gated "
+        f"and ungated): short_conv_gate launches {sc_launches}; 2 rmsnorm calls (D="
+        f"{cfg.d_model}, {acfg.d_model}): rmsnorm launches {norm_launches}; other kernels' "
+        f"launches {other}")
+    if (sc_launches, norm_launches, other) != (2, 2, 0):
+        raise RuntimeError("kernels.ops did not launch each kernel once per call")
+    for name, out, want in (
+        ("short_conv_gate", sc_out[0], short_conv_gate_plain(u_sc, w_sc, gate_sc)),
+        ("short_conv_gate", sc_out[1], short_conv_gate_plain(u_sc, w_sc)),
+        *(("rmsnorm", o, rmsnorm_plain(x, g)) for o, (x, g) in zip(norm_out, norm_in)),
+    ):
+        if out.shape != want.shape or out.dtype != torch.bfloat16:
+            raise RuntimeError(f"{name} returned {out.dtype} {tuple(out.shape)}")
+        compare(name, out, want, torch.bfloat16, f"ops call {tuple(out.shape)}",
+                SHORT_CONV_TOLERANCE if name == "short_conv_gate" else NORM_TOLERANCE)
+    del sc_out, norm_out
 
     # ---- phase 4: times
     log(f"phase 4: times on {card}")
@@ -845,6 +1116,70 @@ def main() -> int:
         f"scaled_dot_product_attention {fl_ms:.4f} ms (its max abs difference from the "
         f"plain version {d_lib:.3e})")
 
+    # the short conv and RMSNorm kernels at phase 3d's shapes, on input sets
+    # that together exceed the L2 cache
+    sc_sets = [short_conv_inputs(BATCH, PROMPT_LEN, sc_D, sc_K, torch.bfloat16, 20 + i, device)
+               for i in range(4)]
+    sc_sets = [(u, w_sc, gate) for u, _, gate in sc_sets]
+    w_flip = w_sc.flip(-1)[:, None, :].bfloat16()
+    sc_times = {}
+    with torch.no_grad():
+        for gated in (True, False):
+            sets = sc_sets if gated else [(u, w, None) for u, w, _ in sc_sets]
+            saved = short_conv_gate.launches
+            ms = cold_ms(ops.short_conv_gate, sets)
+            dev_ms = kernel_device_ms(ops.short_conv_gate, sets, "short_conv_kernel")
+            short_conv_gate.launches = saved  # timing launches are not the path's
+            lib_sets = [(u, w_flip, g) for u, _, g in sets]
+            sc_times[gated] = {
+                "ms": ms, "kernel_ms": dev_ms,
+                "plain_ms": cold_ms(short_conv_gate_plain, sets),
+                "library_ms": cold_ms(conv1d_short_conv, lib_sets),
+                "bound": short_conv_bound_ms(BATCH, PROMPT_LEN, sc_D, sc_K, torch.bfloat16,
+                                             gated=gated),
+            }
+        u, _, gate = sc_sets[0]
+        d_lib = (conv1d_short_conv(u, w_flip, gate).float()
+                 - short_conv_gate_plain(u, w_sc, gate).float()).abs().max().item()
+    for gated, t in sc_times.items():
+        b_ms, b_by = t["bound"]
+        dev = "not measured" if t["kernel_ms"] is None else f"{t['kernel_ms']:.4f} ms"
+        log(f"  short_conv_gate (B={BATCH}, L={PROMPT_LEN}, {sc_D} channels, K={sc_K}, bf16, "
+            f"gate={gated}): {t['ms']:.4f} ms/call (the kernel's device time {dev}), bound "
+            f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / t['ms']:.2f} % of it); plain "
+            f"{t['plain_ms']:.4f} ms; F.conv1d(groups=D) + gate {t['library_ms']:.4f} ms")
+    log(f"  F.conv1d yardstick's max abs difference from the plain version (bf16, gated) "
+        f"{d_lib:.3e}")
+
+    norm_times = {}
+    with torch.no_grad():
+        for x0, g0 in norm_in:
+            d = x0.shape[-1]
+            n_sets = max(2, -(-120_000_000 // (2 * x0.numel() * x0.element_size())))
+            sets = [(torch.randn_like(x0), g0) for _ in range(n_sets)]
+            weight = (1.0 + g0).bfloat16()
+            lib_sets = [(x, weight) for x, _ in sets]
+            saved = rmsnorm.launches
+            ms = cold_ms(ops.rmsnorm, sets)
+            dev_ms = kernel_device_ms(ops.rmsnorm, sets, "rmsnorm_kernel")
+            rmsnorm.launches = saved  # timing launches are not the path's
+            norm_times[d] = {
+                "ms": ms, "kernel_ms": dev_ms,
+                "plain_ms": cold_ms(rmsnorm_plain, sets),
+                "library_ms": cold_ms(
+                    lambda x, wt: torch.nn.functional.rms_norm(x, (x.shape[-1],), wt, 1e-6),
+                    lib_sets),
+                "bound": rmsnorm_bound_ms(BATCH * PROMPT_LEN, d, torch.bfloat16, torch.float32),
+            }
+            del sets, lib_sets
+    for d, t in norm_times.items():
+        b_ms, b_by = t["bound"]
+        dev = "not measured" if t["kernel_ms"] is None else f"{t['kernel_ms']:.4f} ms"
+        log(f"  rmsnorm (x ({BATCH}, {PROMPT_LEN}, {d}) bf16, g fp32): {t['ms']:.4f} ms/call "
+            f"(the kernel's device time {dev}), bound {b_ms:.4f} ms by {b_by} "
+            f"({100 * b_ms / t['ms']:.2f} % of it); plain {t['plain_ms']:.4f} ms; "
+            f"F.rms_norm(weight=1+g) {t['library_ms']:.4f} ms")
+
     log(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -883,6 +1218,36 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": f_ms,
+    }, {
+        "name": "short_conv_gate",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/short_conv.cu",
+        "replaces": "src/repro/kernels/short_conv.py:24",
+        "launches": sc_launches,
+        "max_abs_err": short_conv_err,
+        "ms": sc_times[True]["ms"],  # the wrapper, gated, on cold inputs
+        "kernel_ms": sc_times[True]["kernel_ms"],  # device time by torch.profiler
+        "plain_ms": sc_times[True]["plain_ms"],
+        "bound_ms": sc_times[True]["bound"][0],
+        "bound_by": sc_times[True]["bound"][1],
+        "library_ms": sc_times[True]["library_ms"],
+        "ungated": {k: v for k, v in sc_times[False].items() if k != "bound"}
+        | {"bound_ms": sc_times[False]["bound"][0]},
+    }, {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:18",
+        "launches": norm_launches,
+        "max_abs_err": norm_err,
+        "ms": norm_times[cfg.d_model]["ms"],  # the wrapper at D=864, on cold inputs
+        "kernel_ms": norm_times[cfg.d_model]["kernel_ms"],
+        "plain_ms": norm_times[cfg.d_model]["plain_ms"],
+        "bound_ms": norm_times[cfg.d_model]["bound"][0],
+        "bound_by": norm_times[cfg.d_model]["bound"][1],
+        "library_ms": norm_times[cfg.d_model]["library_ms"],
+        f"d{acfg.d_model}": {k: v for k, v in norm_times[acfg.d_model].items() if k != "bound"}
+        | {"bound_ms": norm_times[acfg.d_model]["bound"][0]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

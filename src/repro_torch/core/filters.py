@@ -46,7 +46,7 @@ def _linspace01(L: int, device) -> torch.Tensor:
     return torch.cat([t, torch.ones(1, device=device)])
 
 
-def positional_encoding(L: int, pos_dim: int, device="cpu") -> torch.Tensor:
+def positional_encoding(L: int, pos_dim: int, device) -> torch.Tensor:
     """(L, pos_dim) truncated complex-exponential basis. pos_dim = 2K + 1."""
     K = (pos_dim - 1) // 2
     t = _linspace01(L, device)[:, None]  # (L, 1)

@@ -62,7 +62,7 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_decode_cache(cfg: HyenaConfig, batch: int, max_len: int,
-                      dtype=torch.bfloat16, device="cpu"):
+                      dtype, device):
     """Caches for single-token decode.
 
     - ``short``: the last ``short_filter_len - 1`` projected inputs,

@@ -101,7 +101,7 @@ def attention_prefill(
 
 
 def init_kv_cache(cfg: AttentionConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cpu") -> Dict[str, Any]:
+                  dtype, device) -> Dict[str, Any]:
     """K and V of (batch, size, Hkv, Dh), size = max_len, or the window for
     local attention; ``t`` is the per-row write cursor (continuous batching:
     every row is a request at its own position)."""

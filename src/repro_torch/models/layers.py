@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 
-def init_norm(d: int, device="cpu") -> Dict[str, Any]:
+def init_norm(d: int, device) -> Dict[str, Any]:
     return {"g": torch.zeros(d, device=device)}
 
 
@@ -77,7 +77,7 @@ def embed(params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 
-def rope_freqs(head_dim: int, theta: float = 10000.0, device="cpu") -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     """``1 / theta^(2i/Dh)`` for i < Dh/2, fp32."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exps)

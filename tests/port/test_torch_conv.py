@@ -143,7 +143,7 @@ def test_positional_encoding_matches_jax():
     for L in (1, 2, 100, 256):
         for pos_dim in (9, 65):
             want = np.asarray(JF.positional_encoding(L, pos_dim))
-            got = TF.positional_encoding(L, pos_dim).numpy()
+            got = TF.positional_encoding(L, pos_dim, "cpu").numpy()
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
             np.testing.assert_array_equal(got[:, 0], want[:, 0])  # the t grid
 

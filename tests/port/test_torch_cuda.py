@@ -16,6 +16,8 @@ from repro_torch.core.blockfft import blockfft_causal_conv
 from repro_torch.core.blockfft import filter_spectrum
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
 from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
 from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
 from repro_torch.serve.engine import ServeConfig, ServeEngine, generate
@@ -263,3 +265,130 @@ def test_generate_on_cuda_launches_flash_once_per_layer(cuda, monkeypatch):
     monkeypatch.setattr(ops, "flash_attention", flash_attention_plain)
     want = generate(params, cfg, prompts, scfg=scfg, max_new_tokens=6)
     assert torch.equal(got, want)
+
+
+# (B, L, D, K, w dtype): hyena-153m's projection ((N+1)·D = 2592 channels,
+# K = 3), K = 1, K = 4, K = 8 with L < K − 1, L = 1, a ragged D, a bf16 w
+SHORT_CONV_SHAPES = [
+    (4, 1024, 2592, 3, torch.float32), (2, 300, 2592, 1, torch.float32),
+    (2, 300, 2592, 4, torch.float32), (2, 5, 64, 8, torch.bfloat16),
+    (3, 1, 2592, 3, torch.float32), (2, 100, 33, 3, torch.bfloat16),
+]
+# (rtol, atol): the kernel's fp32 sums equal the plain version's bit for
+# bit (the same products, rounded before each add, in the same order), so
+# the bf16 downcast agrees too; the bound is one bf16 ulp
+SHORT_CONV_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2.0 ** -7, 2.0 ** -10)}
+
+
+def _short_conv_inputs(B, L, D, K, dtype, w_dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.randn(B, L, D, generator=g, device=device).to(dtype)
+    w = torch.randn(D, K, generator=g, device=device).to(w_dtype)
+    gate = torch.randn(B, L, D, generator=g, device=device).to(dtype)
+    return u, w, gate
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,D,K,w_dtype", SHORT_CONV_SHAPES)
+def test_short_conv_kernel_matches_plain(cuda, dtype, B, L, D, K, w_dtype):
+    u, w, gate = _short_conv_inputs(B, L, D, K, dtype, w_dtype, cuda, seed=L + D + K)
+    rtol, atol = SHORT_CONV_TOL[dtype]
+    for g in (gate, None):
+        got = short_conv_gate(u, w, g)
+        torch.testing.assert_close(got.float(), short_conv_gate_plain(u, w, g).float(),
+                                   rtol=rtol, atol=atol)
+        assert got.dtype == dtype and got.shape == u.shape
+
+
+def test_short_conv_kernel_takes_views_counts_launches_and_refuses(cuda):
+    """Views of a wider projection and a transposed w are read in place; a
+    call the kernel does not take raises before anything runs."""
+    B, L, D, K = 2, 300, 40, 3
+    z = torch.randn(B, L, 3 * D, device=cuda).bfloat16()
+    u, gate = z[..., :D], z[..., D:2 * D]
+    w = torch.randn(K, D, device=cuda).t()
+    before = short_conv_gate.launches
+    got = ops.short_conv_gate(u, w, gate)
+    assert short_conv_gate.launches == before + 1
+    want = short_conv_gate_plain(u.contiguous(), w.contiguous(), gate.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=2.0 ** -10)
+    with pytest.raises(ValueError, match="fp32 or bf16 u"):
+        ops.short_conv_gate(u.half(), w)
+    with pytest.raises(ValueError, match="fp32 or bf16 w"):
+        ops.short_conv_gate(u, w.half())
+    with pytest.raises(ValueError, match="last dim"):
+        ops.short_conv_gate(u.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match="K <= 8"):
+        ops.short_conv_gate(u, torch.randn(D, 9, device=cuda))
+    with pytest.raises(ValueError, match="gate must be"):
+        ops.short_conv_gate(u, w, gate.float())
+    assert short_conv_gate.launches == before + 1
+
+
+# (shape, x dtype, g dtype): hyena-153m's and phi4-mini's rows, one row,
+# D = 5, a 4-D input, the widest d_model of the registry (qwen2-72b)
+RMSNORM_SHAPES = [
+    ((4, 1024, 864), torch.bfloat16, torch.float32),
+    ((4, 1024, 3072), torch.bfloat16, torch.float32),
+    ((4, 1024, 864), torch.float32, torch.float32),
+    ((1, 3072), torch.float32, torch.bfloat16),
+    ((3, 7, 5), torch.bfloat16, torch.bfloat16),
+    ((2, 3, 4, 864), torch.float32, torch.float32),
+    ((3, 8192), torch.bfloat16, torch.float32),
+    ((17, 1), torch.float32, torch.float32),
+]
+# (rtol, atol): the sum of squares is taken in another order; bf16 outputs
+# may land one bf16 ulp (at most 2^-7 of the value) apart
+RMSNORM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -10)}
+
+
+@pytest.mark.parametrize("shape,dtype,g_dtype", RMSNORM_SHAPES)
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, g_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    x.view(-1, shape[-1])[0] = 0  # a row of zeros gives zeros
+    g = (0.5 * torch.randn(shape[-1], generator=gen, device=cuda)).to(g_dtype)
+    got = rmsnorm(x, g)
+    rtol, atol = RMSNORM_TOL[dtype]
+    torch.testing.assert_close(got.float(), rmsnorm_plain(x, g).float(), rtol=rtol, atol=atol)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert not got.view(-1, shape[-1])[0].any()
+
+
+def test_rmsnorm_kernel_takes_views_counts_launches_and_refuses(cuda):
+    """Rows of a wider tensor are read in place through their row stride,
+    with 128-bit loads where the rows start 16-byte aligned and one element
+    at a time where they do not; a call the kernel does not take raises
+    before anything runs."""
+    wide = torch.randn(4, 100, 1000, device=cuda)
+    g = torch.randn(2 * 864, device=cuda)[::2]
+    before = rmsnorm.launches
+    for x in (wide[..., :864], wide[..., 1:865]):
+        got = ops.rmsnorm(x, g, eps=1e-5)
+        want = rmsnorm_plain(x.contiguous(), g.contiguous(), eps=1e-5)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert rmsnorm.launches == before + 2
+    with pytest.raises(ValueError, match="fp32 or bf16 x"):
+        ops.rmsnorm(x.half(), g)
+    with pytest.raises(ValueError, match="fp32 or bf16 g"):
+        ops.rmsnorm(x, g.half())
+    with pytest.raises(ValueError, match="last dim"):
+        ops.rmsnorm(x.transpose(1, 2), torch.randn(100, device=cuda))
+    with pytest.raises(ValueError, match="g has shape"):
+        ops.rmsnorm(x, g[:-1])
+    assert rmsnorm.launches == before + 2
+
+
+def test_no_model_path_launches_short_conv_or_rmsnorm(cuda):
+    """The two kernels are reached only through kernels.ops: the served
+    paths of both model families launch neither."""
+    before = short_conv_gate.launches, rmsnorm.launches
+    for arch in ("hyena-153m", "phi4-mini-3.8b"):
+        cfg = get_config(arch).reduced()
+        if arch.startswith("phi4"):
+            cfg = dataclasses.replace(cfg, head_dim=64)
+        params = lm.init_lm(cfg, seed=0, device=cuda)
+        prompts = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                                generator=torch.Generator(device=cuda).manual_seed(1))
+        generate(params, cfg, prompts, scfg=ServeConfig(max_len=64), max_new_tokens=3)
+    assert (short_conv_gate.launches, rmsnorm.launches) == before
