@@ -14,16 +14,24 @@ input dtype.  A row that sees no key gives 0, as the Pallas kernel's
 ``l == 0`` guard does (the ``ref`` oracle gives NaN there).
 
 Kernel (``csrc/flash_attention.cu``): one block per (64 query rows, query
-head, batch row), eight warps of eight rows each, looping over 32-key tiles
-of K and V staged in shared memory as fp32; lanes own keys for q·kᵀ and
-head-dim columns for p·v, with the running max, sum and accumulator in fp32
-registers.  Key tiles that the causal or window mask covers completely are
-never visited.  What bounds it on the card: its own fp32 FMAs and shared
-loads on the CUDA cores (4·Dh·B·H·Lq·Lk/2 operations for a causal call,
-25.8 GFLOP at B=4, H=24, L=1024, Dh=128), while the function's least time
-is set by the same operations on the bf16 tensor cores; tensor cores are
-later work.  It takes Dh ∈ {64, 128, 256}, fp32 or bf16, H % Hkv == 0 and
-views whose last dim is unit-stride; it raises on anything else.
+head, batch row), looping over the key tiles that the causal or window
+mask leaves visible, with the running max, sum and accumulator in fp32
+registers.  Its function is bound by operations (4·Dh per visible (query,
+key) pair and head: 25.8 GFLOP at B=4, H=24, L=1024, Dh=128, 26 µs on the
+bf16 tensor cores).  bf16 inputs run on the tensor cores: one warpgroup of
+4 warps × 16 rows, q·Kᵀ and P·V as ``mma.sync`` m16n8k16 bf16 tiles with
+fp32 accumulators, K and V in 64-key tiles (32 at Dh = 256) through a
+two-stage ``cp.async`` ring in shared memory laid out with TMA's 128-byte
+swizzle, and P rounded to bf16 in registers between the two products (see
+:data:`TOLERANCE`).  Views whose rows do not start on 16 bytes take a
+second instance of the same kernel that stages its tiles element by
+element.  fp32 inputs run on the CUDA cores (eight warps of eight rows,
+32-key tiles staged as fp32), bound by their FMA rate and shared loads.
+Later work: ``wgmma`` with shared-memory descriptors, TMA loads with
+``mbarrier`` waits, warp specialisation, the G query heads of one KV head in
+one block, a backward pass.  It takes Dh ∈ {64, 128, 256}, fp32 or bf16,
+H % Hkv == 0 and views whose last dim is unit-stride; it raises on
+anything else.
 
 :func:`flash_attention` is the kernel alone (CUDA tensors only) and counts
 its launches on ``flash_attention.launches``;
@@ -42,6 +50,20 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # must equal the instances in csrc/flash_attention.cu
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# (rtol, atol) of the kernel against flash_attention_plain, by dtype.
+# fp32: both sum the same fp32 products in other orders.  bf16: the kernel
+# rounds p to bf16 (round to nearest, 8 significant bits: relative error
+# at most 2^-8) before p·v, as every tensor-core flash kernel does, so
+# |o − plain| ≤ 2^-8·Σⱼ pⱼ|vⱼ| plus each output's own bf16 rounding (at
+# most 2^-8 of the value on each side).  Where a row's weight sits on few
+# keys, Σⱼ pⱼ|vⱼ| ≈ |o| and the bound is 3·2^-8·|o|, inside rtol = 2^-6;
+# where it is spread over many keys, |o| shrinks by cancellation while the
+# rounding errors, of independent signs, grow only as the root of their
+# sum of squares, and atol = 2^-7 (one bf16 ulp at |o| in [1, 2)) holds
+# that part for unit-variance v (randn).  The plain version with p rounded
+# to bf16 stays within this tolerance of the plain version
+# (tests/port/test_torch_attention.py).
+TOLERANCE = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -6, 2.0 ** -7)}
 
 
 def _check_shapes(q, k, v) -> None:
@@ -104,16 +126,30 @@ def _kernel(dtype_tag: str):
     fn = getattr(lib, f"flash_attention_{dtype_tag}")
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-        + [ctypes.c_int] * 3 + [ctypes.c_int64] * 12 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_int64] * 12
+        + ([ctypes.c_int] if dtype_tag == "bf16" else []) + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
+    lib.flash_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_smem_bytes.restype = ctypes.c_int
     return lib, fn
 
 
 def _strides(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def rows_aligned16(*ts: torch.Tensor) -> bool:
+    """Whether every row of these (B, H, L, Dh) views starts on a 16-byte
+    boundary (the data pointer and the first three strides): the bf16
+    kernel then copies its tiles by 16-byte ``cp.async``, else it takes its
+    element-wise instance."""
+    return all(
+        t.data_ptr() % 16 == 0 and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+        for t in ts
+    )
 
 
 def flash_attention(
@@ -156,10 +192,11 @@ def flash_attention(
         return out
     lib, fn = _kernel(_KERNEL_DTYPES[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    aligned = (int(rows_aligned16(q, k, v)),) if q.dtype == torch.bfloat16 else ()
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, Hkv, Lq, Lk, Dh, scale, int(causal), 0 if window is None else int(window),
-        q_offset, *_strides(q), *_strides(k), *_strides(v), *_strides(out), stream,
+        q_offset, *_strides(q), *_strides(k), *_strides(v), *_strides(out), *aligned, stream,
     )
     if err != 0:
         raise RuntimeError(

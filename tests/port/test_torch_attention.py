@@ -11,6 +11,9 @@ Tolerances, with their reasons:
   same fp32 products in different orders; measured ≤ 1e-6.
 - bf16 attention outputs: one bf16 ulp, 2^-7 of the magnitude, where the
   fp32 sums straddle a rounding boundary: rtol = 2^-7, atol = 2^-9.
+- The bf16 CUDA kernel against the plain version: rtol = 2^-6, atol =
+  2^-7 (``FA.TOLERANCE``, derived there: the kernel rounds p to bf16
+  before p·v).  Here the plain version with p so rounded is held to it.
 - RoPE and the MLPs at fp32: 1e-5 (sin/cos and pow of two libraries).
 - phi4-mini reduced, fp32 prefill logits: 1e-4 on logits of magnitude ~4
   (measured 4.8e-6); greedy fp32 tokens identical.
@@ -153,6 +156,61 @@ def test_kernel_wrapper_refuses_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensors"):
         FA.flash_attention(q, k, v)
     assert FA.flash_attention.launches == 0
+
+
+def _plain_p_bf16(q, k, v, *, window=None, q_offset=None):
+    """``flash_attention_plain`` (causal) with p rounded to bf16 before p·v,
+    as the bf16 tensor-core kernel rounds it: a model of the kernel's one
+    extra rounding, kept here and not in the port."""
+    Bq, H, Lq, Dh = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    q_offset = Lk - Lq if q_offset is None else q_offset
+    qg = (q.float() * Dh ** -0.5).reshape(Bq, Hkv, H // Hkv, Lq, Dh)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    qpos = torch.arange(Lq)[:, None] + q_offset
+    kpos = torch.arange(Lk)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask, s, FA.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p.bfloat16().float(), v.float())
+    return (o / torch.where(l == 0, 1.0, l)).reshape(Bq, H, Lq, Dh).to(q.dtype)
+
+
+# (H, Hkv, Lq, Lk, Dh, window, q_offset): a first query block, whose rows
+# see 1 to 64 keys; a window of 9; Lq < Lk at a free query offset
+P_BF16_CASES = [
+    (4, 2, 64, 64, 64, None, None),
+    (4, 2, 96, 96, 64, 9, None),
+    (4, 1, 24, 80, 128, None, 30),
+]
+
+
+@pytest.mark.parametrize("H,Hkv,Lq,Lk,Dh,window,q_offset", P_BF16_CASES)
+def test_bf16_kernel_tolerance_covers_p_rounded_to_bf16(H, Hkv, Lq, Lk, Dh, window, q_offset):
+    """The bf16 kernel's tolerance (``FA.TOLERANCE``) holds the one rounding
+    it adds to the plain version's function: p in bf16 before p·v."""
+    q, k, v = (t(a).bfloat16() for a in _qkv(2, H, Hkv, Lq, Lk, Dh, seed=Lq + Lk))
+    got = _plain_p_bf16(q, k, v, window=window, q_offset=q_offset)
+    want = FA.flash_attention_plain(q, k, v, window=window, q_offset=q_offset)
+    assert not torch.equal(got, want)  # the rounding shows
+    rtol, atol = FA.TOLERANCE[torch.bfloat16]
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=rtol, atol=atol)
+
+
+def test_bf16_kernel_instance_follows_row_alignment():
+    """The wrapper sends views whose rows start on 16 bytes to the
+    ``cp.async`` instance and others, such as a split of a projection
+    sliced past its first element, to the element-wise one."""
+    H, Hkv, Dh = 6, 2, 64
+    split = lambda z: [x.unflatten(-1, (-1, Dh)).transpose(1, 2)
+                       for x in z.split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)]
+    width = (H + 2 * Hkv) * Dh
+    assert FA.rows_aligned16(*split(torch.zeros(2, 10, width, dtype=torch.bfloat16)))
+    assert not FA.rows_aligned16(*split(torch.zeros(2, 10, width + 1, dtype=torch.bfloat16)[..., 1:]))
+    assert not FA.rows_aligned16(*split(torch.zeros(2, 10, width + 8, dtype=torch.bfloat16)[..., 1:-7]))
 
 
 # ------------------------------------------------------- RoPE and the MLPs
