@@ -9,14 +9,19 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
 
 1. Build every CUDA kernel of the served path from ``csrc/`` with ``nvcc``
    (sm_90a), timed; print ptxas's registers and spills of every kernel
-   (raised if an instance of the flash kernel's bf16 path spills); print
-   the card's name and power limit as
+   (raised if an instance of the flash kernel's bf16 path or of the
+   two-level conv's tensor-core path spills); print the card's name and
+   power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes the served paths give it (and a non-power-of-two split, a ragged
    channel tile, a banded Toeplitz call, gated and ungated, skip or not,
-   fp32 and bf16; for the flash attention kernel MHA, MQA, Dh 64 and 256, a
+   fp32 and bf16; for the two-level conv also N = 675 = 25·27 and the model
+   path's operands, u and the gate as split views of the projection and h
+   sliced from the max_len grid, read in place: bit for bit what contiguous
+   copies give, gated equal to gate × ungated, and one device kernel and no
+   copy in a traced call; for the flash attention kernel MHA, MQA, Dh 64 and 256, a
    window, a ragged L, decode offsets, rows that see no key, the mixer's
    transposed views, and in bf16 the edges of its key tiles: an Lk that is
    no multiple of the tile with Lq != Lk, a window ending inside a tile,
@@ -73,10 +78,14 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    served paths): prefill ms, decode ms per step and tokens/s of
    ``generate()`` for hyena-153m and for phi4-mini; the engine's wall time, new tokens/s, ms per admission
    prefill and per pooled decode step; each kernel's ms per call (``ms``:
-   the wrapper; for the FFT conv it computes the filter spectrum in plain
-   PyTorch and launches the kernel, ``kernel_ms`` is the kernel alone)
+   the wrapper; for the FFT conv one launch that computes the filter
+   spectrum too, timed in turns with the ``torch.fft`` conv, with its device
+   time from ``torch.profiler`` and its TFLOP/s of dense four-step products;
+   ``kernel_ms`` is the launch given H; then each two-level instance's
+   registers, shared memory and spill bytes from the ptxas report)
    beside its plain version, the ``torch.fft`` conv of the same function
-   (``library_ms``) and its bound: the larger of the bytes the function
+   (``library_ms``; for the toeplitz conv at B=1 and, as ``library_ms_b4``,
+   at B=4) and its bound: the larger of the bytes the function
    must move over 3.35 TB/s and an FFT conv's fp32 operations (a banded
    call: the band's products) over 67 TFLOP/s, the H100 SXM's published
    peaks.  phi4-mini's prefill also with the kernel's plain version and
@@ -129,8 +138,10 @@ ATTN_ARCH = "phi4-mini-3.8b"
 
 # kernel against plain version: bf16 outputs may land one bf16 ulp apart
 # (2^-7 of the value) where the fp32 sums straddle a rounding boundary, and
-# the gate multiply adds its own rounding; fp32 outputs differ only by the
-# order of the DFT sums.
+# the gate multiply adds its own rounding; the two-level conv's TF32
+# products stay inside atol (derived beside
+# kernels/twolevel_fft.py::TOLERANCE, which check_twolevel holds equal);
+# fp32 outputs differ only by the order of the DFT sums.
 TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -6, 2.0 ** -10)}  # (rtol, atol)
 # flash attention against its plain version: fp32 outputs differ only by
 # the order of the fp32 sums; the bf16 kernel rounds p to bf16 (relative
@@ -265,6 +276,45 @@ def log_flash_instances(instances) -> None:
             f"spill stores {i['spill_stores']} B, spill loads {i['spill_loads']} B")
 
 
+def twolevel_instances():
+    """The two-level conv's instances from its ptxas report: the tensor-core
+    path's (NT n-tiles, H given or not) and the CUDA-core path's (dtype,
+    channels per block)."""
+    import re
+
+    out = []
+    for inst in ptxas_report("twolevel_fft"):
+        if m := re.search(r"twolevel_tc_kernelILi(\d+)ELb([01])E", inst["function"]):
+            label = f"tensor cores NT={m.group(1)}" + (" H given" if m.group(2) == "1" else "")
+            out.append(inst | {"path": "tc", "label": label})
+        elif m := re.search(r"twolevel_fft_conv_kernelI(f|13__nv_bfloat16)Li(\d)E", inst["function"]):
+            dtype = "fp32" if m.group(1) == "f" else "bf16"
+            out.append(inst | {"path": "core", "label": f"CUDA cores {dtype} td={m.group(2)}"})
+    return out
+
+
+def log_twolevel_instances(instances) -> None:
+    for i in instances:
+        log(f"  twolevel instance {i['label']}: {i['registers']} registers, {i['smem']} B "
+            f"static shared memory, spill stores {i['spill_stores']} B, spill loads "
+            f"{i['spill_loads']} B")
+
+
+def fourstep_flops(B, L, D) -> float:
+    """The dense four-step products of one two-level conv call on
+    N = R·S points (R, S the default split): per column stage 1 (two real
+    products R×R by R×S), stages 2 and 3 (four R×S by S×S each) and stage 4
+    (two R×R by R×S), 8NR + 16NS operations, and per channel stages 1-2 on
+    the taps, 4NR + 8NS.  The kernel skips stage 1's zero half and stage
+    4's rows past L, so it does fewer."""
+    from repro_torch.core.blockfft import resolve_factors
+    from repro_torch.core.fftconv import next_fast_len
+
+    N = next_fast_len(2 * L - 1)
+    R, S = resolve_factors(N, None)
+    return float(B * D * (8 * N * R + 16 * N * S) + D * (4 * N * R + 8 * N * S))
+
+
 def conv_inputs(B, L, D, dtype, seed, device):
     import torch
 
@@ -330,7 +380,8 @@ def compare(name, got, want, dtype, label, tolerance=TOLERANCE):
     rtol, atol = tolerance[str(dtype).split(".")[-1]]
     excess = (diff - rtol * want.float().abs()).max().item()
     err = diff.max().item()
-    log(f"  {name} {label}: max_abs_err={err:.3e} (tolerance {atol:g} + {rtol:g}·|plain|)")
+    log(f"  {name} {label}: max_abs_err={err:.3e}, beyond rtol·|plain| {excess:.2e} "
+        f"(tolerance {atol:g} + {rtol:g}·|plain|)")
     if excess > atol:
         raise RuntimeError(f"{name} disagrees with its plain version at {label}")
     return err
@@ -339,10 +390,14 @@ def compare(name, got, want, dtype, label, tolerance=TOLERANCE):
 def check_twolevel(device) -> float:
     """Phase 2, kernel 1; returns the max abs error at the served shape."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.blockfft import blockfft_causal_conv
+    from repro_torch.kernels.twolevel_fft import TOLERANCE as TL_TOLERANCE
     from repro_torch.kernels.twolevel_fft import twolevel_fft_conv
 
+    if {str(d).split(".")[-1]: t for d, t in TL_TOLERANCE.items()} != TOLERANCE:
+        raise RuntimeError("TOLERANCE is not the two-level kernel module's TOLERANCE")
     cases = [
         # (B, L, D, dtype, gated, with skip)
         (BATCH, PROMPT_LEN, 864, torch.bfloat16, True, True),  # the served path
@@ -355,6 +410,7 @@ def check_twolevel(device) -> float:
         (2, 1000, 865, torch.float32, True, True),  # ragged channel tile
         (2, 100, 5, torch.float32, True, True),  # N = 200 = 10·20
         (1, 8192, 8, torch.float32, True, True),  # the largest L taken
+        (BATCH, 333, 864, torch.bfloat16, True, True),  # N = 675 = 25·27
     ]
     errs = []
     for i, (B, L, D, dtype, gated, with_skip) in enumerate(cases):
@@ -366,6 +422,40 @@ def check_twolevel(device) -> float:
             blockfft_causal_conv(u, h, skip, gate), dtype,
             f"B={B} L={L} D={D} {str(dtype)[6:]} gate={gated} skip={with_skip}",
         ))
+    # the model path's operands (models/hyena.py): u and the gate are
+    # torch.split views of the projection, h is sliced from the max_len
+    # grid, skip is in the compute dtype; read in place
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=device).manual_seed(15)
+        z = torch.randn(BATCH, PROMPT_LEN, 3 * 864, generator=g, device=device).to(dtype)
+        u, gate, _ = torch.split(z, 864, dim=-1)
+        h = (torch.randn(864, MAX_LEN, generator=g, device=device) / PROMPT_LEN)[:, :PROMPT_LEN]
+        skip = torch.randn(864, generator=g, device=device).to(dtype)
+        before = twolevel_fft_conv.launches
+        got = twolevel_fft_conv(u, h, skip, gate)
+        if twolevel_fft_conv.launches != before + 1:
+            raise RuntimeError("a twolevel_fft_conv call did not launch the kernel once")
+        compare("twolevel_fft_conv", got, blockfft_causal_conv(u, h, skip, gate), dtype,
+                f"B={BATCH} L={PROMPT_LEN} D=864 {str(dtype)[6:]} split views, sliced h")
+        same = torch.equal(got, twolevel_fft_conv(u.contiguous(), h.contiguous(), skip,
+                                                  gate.contiguous()))
+        gated = torch.equal(got, gate * twolevel_fft_conv(u, h, skip))
+        log(f"  twolevel_fft_conv views ({str(dtype)[6:]}): equal to contiguous copies bit for "
+            f"bit {same}; gated equals gate * ungated bit for bit {gated}")
+        if not (same and gated):
+            raise RuntimeError("twolevel_fft_conv on views differs from contiguous copies")
+        if dtype == torch.bfloat16:
+            # one device kernel: no copy of a view, no plain-torch transform of h
+            twolevel_fft_conv(u, h, skip, gate)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                twolevel_fft_conv(u, h, skip, gate)
+                torch.cuda.synchronize()
+            kernels = [e.key for e in prof.key_averages()
+                       if str(e.device_type).endswith("CUDA") and e.count]
+            log(f"  device kernels of one call on the model path's operands: {kernels}")
+            if kernels and (len(kernels) != 1 or "twolevel_tc_kernel" not in kernels[0]):
+                raise RuntimeError("the model path's call ran more than the tensor-core kernel")
     # the wrapper raises on what the kernel does not take
     u, h, _, _ = conv_inputs(1, 8193, 2, torch.float32, seed=1, device=device)
     try:
@@ -820,7 +910,8 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
     from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
-    from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
+    from repro_torch.kernels.twolevel_fft import launch_with_spectrum, tc_launch_shape
+    from repro_torch.kernels.twolevel_fft import twolevel_fft_conv
     from repro_torch.models import lm
     from repro_torch.models.mixer_api import ApplyContext
     from repro_torch.serve.engine import ServeConfig, generate
@@ -847,6 +938,12 @@ def main() -> int:
     spills = [i for i in bf16_inst if i["spill_stores"] or i["spill_loads"]]
     if len(bf16_inst) != 6 or spills:
         raise RuntimeError(f"the six bf16 flash instances must build without spills: {spills}")
+    tl_inst = twolevel_instances()
+    tc_inst = [i for i in tl_inst if i["path"] == "tc"]
+    spills = [i["label"] for i in tc_inst if i["spill_stores"] or i["spill_loads"]]
+    if len(tc_inst) != 16 or spills:
+        raise RuntimeError(f"the 16 tensor-core two-level instances must build without "
+                           f"spills: {spills}")
     log(f"  card: {card}")
     log("  torch.backends.cuda.matmul.allow_tf32 = False (fp32 matmuls in full fp32)")
 
@@ -1106,21 +1203,40 @@ def main() -> int:
     u, h, skip, gate = conv_inputs(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16, 7, device)
     N = next_fast_len(2 * PROMPT_LEN - 1)
     H = filter_spectrum(h, N, resolve_factors(N, None)).contiguous()
+    tl_kernel = lambda: twolevel_fft_conv(u, h, skip, gate)
+    tl_library = lambda: fft_causal_conv(u, h, skip, gate)
+    tl_given = lambda: launch_with_spectrum(u, H, skip, gate)
     with torch.no_grad():
         saved = twolevel_fft_conv.launches
-        k_ms = cuda_ms(lambda: twolevel_fft_conv(u, h, skip, gate))
-        kernel_ms = cuda_ms(lambda: launch_with_spectrum(u, H, skip, gate))
+        # in turns, kernel, library, library, kernel
+        turns = [cuda_ms(fn, iters=50) for fn in (tl_kernel, tl_library, tl_library, tl_kernel)]
+        kernel_ms = cuda_ms(tl_given, iters=50)
+        k_dev_ms = kernel_device_ms(tl_kernel, [()], "twolevel")
+        kh_dev_ms = kernel_device_ms(tl_given, [()], "twolevel")
         twolevel_fft_conv.launches = saved  # timing launches are not the path's
         p_ms = cuda_ms(lambda: blockfft_causal_conv(u, h, skip, gate))
-        f_ms = cuda_ms(lambda: fft_causal_conv(u, h, skip, gate))
+    k_ms, f_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     bound_ms, bound_by = conv_bound_ms(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16)
     kbound_ms, kbound_by = conv_bound_ms(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16,
                                          spectrum_given=True)
+    tl_flops = fourstep_flops(BATCH, PROMPT_LEN, cfg.d_model)
+    tl_tflops = tl_flops / (k_dev_ms or k_ms) / 1e9
+    dev = lambda t: "not measured" if t is None else f"{t:.4f} ms"
     log(f"  twolevel_fft_conv (B={BATCH}, L={PROMPT_LEN}, D={cfg.d_model}, bf16, gated): "
-        f"{k_ms:.4f} ms/call with the filter spectrum, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({100 * bound_ms / k_ms:.2f} % of it); the kernel alone (H given) {kernel_ms:.4f} ms, "
-        f"bound {kbound_ms:.4f} ms by {kbound_by} ({100 * kbound_ms / kernel_ms:.2f} %); "
-        f"plain blockfft {p_ms:.4f} ms; torch.fft conv {f_ms:.4f} ms")
+        f"{k_ms:.4f} ms/call ({turns[0]:.4f}, {turns[3]:.4f}), one launch with the filter "
+        f"spectrum, its device time {dev(k_dev_ms)}, {tl_tflops:.1f} TFLOP/s of the "
+        f"{tl_flops / 1e9:.2f} GFLOP of dense four-step products; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({100 * bound_ms / k_ms:.2f} % of it); the launch given H {kernel_ms:.4f} "
+        f"ms (device {dev(kh_dev_ms)}), bound {kbound_ms:.4f} ms by {kbound_by} "
+        f"({100 * kbound_ms / kernel_ms:.2f} %); plain blockfft {p_ms:.4f} ms; torch.fft conv "
+        f"{f_ms:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}) in turns with it, "
+        f"{k_ms / f_ms:.2f}x its time")
+    log_twolevel_instances(tl_inst)
+    tc_smem = tc_launch_shape(*resolve_factors(N, None), BATCH, PROMPT_LEN, cfg.d_model,
+                              torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"  the served launch: {tc_smem[0]} teams of 4 warps ({tc_smem[1]} threads) a block, "
+        f"{tc_smem[2]} B of dynamic shared memory, {tc_smem[3]} blocks, {tc_smem[4]} batch "
+        f"rows a unit")
 
     _, _, times = serve_engine(params, cfg, escfg, eprompts, timed=True)
     new_tokens = sum(ENGINE_HORIZONS)
@@ -1146,12 +1262,13 @@ def main() -> int:
         toeplitz_conv.launches = saved  # timing launches are not the path's
         tp_ms = cuda_ms(lambda: toeplitz_conv_plain(u, h, skip, gate))
         tf_ms = cuda_ms(lambda: fft_causal_conv(u, h, skip, gate))
+        tf4_ms = cuda_ms(lambda: fft_causal_conv(u4, h4, skip4, gate4))
     tb_ms, tb_by = conv_bound_ms(1, PROMPT_LEN, cfg.d_model, torch.bfloat16)
     t4b_ms, _ = conv_bound_ms(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16)
     log(f"  toeplitz_conv (B=1, L={PROMPT_LEN}, D={cfg.d_model}, bf16, gated): {t_ms:.4f} "
         f"ms/call, bound {tb_ms:.4f} ms by {tb_by} ({100 * tb_ms / t_ms:.2f} % of it); plain "
         f"{tp_ms:.4f} ms; torch.fft conv {tf_ms:.4f} ms; at B={BATCH}: {t4_ms:.4f} ms/call, "
-        f"bound {t4b_ms:.4f} ms")
+        f"bound {t4b_ms:.4f} ms, torch.fft conv {tf4_ms:.4f} ms")
 
     # phi4-mini: the served path and the flash kernel at its shape
     with torch.no_grad():
@@ -1302,6 +1419,9 @@ def main() -> int:
         "bound_ms": tb_ms,
         "bound_by": tb_by,
         "library_ms": tf_ms,
+        "ms_b4": t4_ms,
+        "bound_ms_b4": t4b_ms,
+        "library_ms_b4": tf4_ms,
     }, {
         "name": "twolevel_fft_conv",
         "route": "cuda",
@@ -1309,8 +1429,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/twolevel_fft.py:85",
         "launches": launches,
         "max_abs_err": served_err,
-        "ms": k_ms,  # the wrapper: filter spectrum H (plain torch) + kernel
-        "kernel_ms": kernel_ms,  # the CUDA kernel alone, H given
+        "ms": k_ms,  # the wrapper: one launch, the filter spectrum H in it
+        "device_ms": k_dev_ms,  # that launch's device time by torch.profiler
+        "tflops": tl_tflops,  # dense four-step products over the device time
+        "kernel_ms": kernel_ms,  # the launch given H
+        "kernel_device_ms": kh_dev_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,

@@ -37,6 +37,7 @@ from repro_torch.core.operator import (
     precompute_decode_filters,
 )
 from repro_torch.models.hyena import hyena_prefill
+from repro_torch.kernels import twolevel_fft as TL
 from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
 
 from torch_port_util import TORCH_THREADS, free_jax_programs, t  # noqa: F401
@@ -87,6 +88,140 @@ def test_launch_with_spectrum_refuses_cpu_tensors():
     H = TB.filter_spectrum(h, 200, (10, 20))
     with pytest.raises(ValueError, match="CUDA tensors"):
         launch_with_spectrum(u, H, skip, gate)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero: what the kernel's cvt.rna.tf32.f32 does."""
+    if x.is_complex():
+        return torch.complex(_tf32(x.real), _tf32(x.imag))
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_blockfft_causal_conv(u, h, skip, gate, factors):
+    """The bf16 kernel's rounding on the CPU: blockfft_causal_conv with the
+    operands of each of its four products, and of the two that transform
+    the taps into H, rounded to TF32, the sums in fp32, and the twiddles,
+    the product with H, the scale and the epilogue in fp32."""
+    B, L, D = u.shape
+    N = next_fast_len(2 * L - 1)
+    R, S = factors
+    FR, FS, TW = (m.clone() for m in TB.dft_tables(N, (R, S), "cpu"))
+    FR, FS = _tf32(FR), _tf32(FS)
+
+    def forward(x):  # (B', N, D) real -> stage 2's output (B', R, S, D)
+        A = _tf32(x.reshape(x.shape[0], R, S, D).to(torch.complex64))
+        X = torch.einsum("kr,brsd->bksd", FR, A) * TW[None, :, :, None]
+        return torch.einsum("bksd,sj->bkjd", _tf32(X), FS)
+
+    u32 = u.float()
+    C = forward(torch.nn.functional.pad(u32, (0, 0, 0, N - L)))
+    H = forward(torch.nn.functional.pad(h.float().T, (0, 0, 0, N - L))[None])
+    Dm = torch.einsum("bkjd,sj->bksd", _tf32(C * H), FS.conj()) * TW.conj()[None, :, :, None]
+    y = torch.einsum("kr,bksd->brsd", FR.conj(), _tf32(Dm)).real.reshape(B, N, D)[:, :L] / N
+    if skip is not None:
+        y = y + u32 * skip.float()
+    y = y.to(u.dtype)
+    return y if gate is None else y * gate
+
+
+def test_twolevel_tolerance_states_the_tf32_bound():
+    """TOLERANCE's values, and the rounding its derivation rests on: TF32
+    by round-to-nearest (ties away) is off by at most 2^-11 of the value."""
+    assert TL.TOLERANCE == {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -6, 2.0 ** -10)}
+    x = torch.tensor([1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 2.0 ** -11), 3.0, 0.0])
+    assert _tf32(x).tolist() == [1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10), 3.0, 0.0]
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(10_000).astype(np.float32))
+    assert ((_tf32(r) - r).abs() <= 2.0 ** -11 * r.abs()).all()
+
+
+@pytest.mark.parametrize("B,L,D,factors", [(2, 1024, 4, (64, 32)), (1, 37, 3, (5, 15)),
+                                           (1, 1000, 3, (40, 50))])
+def test_tf32_rounding_model_holds_the_bf16_gate(B, L, D, factors):
+    """The bf16 kernel's TF32 products, modelled on the CPU, stay inside the
+    unchanged bf16 gate against the plain version (TOLERANCE), with at
+    least a fourfold margin on atol, gated with skip and bare."""
+    rng = np.random.default_rng(L + D)
+    u = torch.from_numpy(rng.standard_normal((B, L, D)).astype(np.float32)).bfloat16()
+    h = torch.from_numpy((rng.standard_normal((D, L)) / L).astype(np.float32))
+    skip = torch.from_numpy(rng.standard_normal(D).astype(np.float32))
+    gate = torch.from_numpy(rng.standard_normal((B, L, D)).astype(np.float32)).bfloat16()
+    rtol, atol = TL.TOLERANCE[torch.bfloat16]
+    for sk, g in ((skip, gate), (None, None)):
+        got = _tf32_blockfft_causal_conv(u, h, sk, g, factors).float()
+        want = TB.blockfft_causal_conv(u, h, sk, g, factors=factors).float()
+        excess = ((got - want).abs() - rtol * want.abs()).max().item()
+        assert excess <= atol / 4, (sk is not None, g is not None, excess)
+
+
+@pytest.mark.parametrize("factors", [(5, 15), (40, 50), (64, 32), (32, 64)])
+def test_tensor_core_tables_are_the_dft_matrices_in_fragment_order(factors):
+    """Read back through mma.m16n8k8's fragment layout (lane l: g = l // 4,
+    q = l % 4; A holds (g, q), (g+8, q), (g, q+4), (g+8, q+4), B holds
+    (q, g), (q+4, g), C holds (g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1)),
+    the kernel's tables are FR with its k columns in ``krow`` order, FS with
+    k-slot q of step j on row 8j + 2q and q + 4 on 8j + 2q + 1 (the order
+    in which a C fragment is the next stage's A fragment) and its negated
+    imaginary part, and TW in C order, each zero past R and S."""
+    R, S = factors
+    N = R * S
+    MT, NT, Rp = TL._tc_dims(R, S)
+    Sp, KR = 8 * NT, 2 * MT
+    _, _, FR, FS, TW = TB._dft_mats(N, factors)
+    sizes = [2 * Rp * Rp, 128 * NT * NT, 64 * NT * NT, 256 * MT * NT]
+    tab = TL._tc_tables(N, factors)
+    assert tab.size == sum(sizes)
+    fr, fs, fsn, tw = np.split(tab, np.cumsum(sizes)[:-1])
+    lane = np.arange(32)
+    g, q = lane >> 2, lane & 3
+
+    def padded(m, rows, cols):
+        out = np.zeros((rows, cols), np.complex64)
+        out[: m.shape[0], : m.shape[1]] = m
+        return out
+
+    fr = fr.reshape(MT, KR, 2, 32, 4)
+    got = np.full((Rp, Rp), np.nan, np.complex64)
+    i = np.arange(KR)[:, None]
+    for e, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 4), (8, 4))):
+        for mt in range(MT):
+            got[16 * mt + g + dr, TL.krow(i, q + dk)] = fr[mt, :, 0, :, e] + 1j * fr[mt, :, 1, :, e]
+    np.testing.assert_array_equal(got, padded(FR, Rp, Rp))
+
+    fs, fsn = fs.reshape(NT, NT, 32, 4), fsn.reshape(NT, NT, 32, 2)
+    got = np.full((Sp, Sp), np.nan, np.complex64)
+    j = np.arange(NT)[:, None, None]
+    jn = np.arange(NT)[None, :, None]
+    for half in (0, 1):
+        got[8 * j + 2 * q + half, 8 * jn + g] = fs[..., half] + 1j * fs[..., 2 + half]
+        np.testing.assert_array_equal(fsn[..., half], -fs[..., 2 + half])
+    np.testing.assert_array_equal(got, padded(FS, Sp, Sp))
+
+    tw = tw.reshape(MT, NT, 2, 32, 4)
+    got = np.full((Rp, Sp), np.nan, np.complex64)
+    mt = np.arange(MT)[:, None, None]
+    for e in range(4):
+        got[16 * mt + g + 8 * (e >> 1), 8 * jn + 2 * q + (e & 1)] = (
+            tw[:, :, 0, :, e] + 1j * tw[:, :, 1, :, e])
+    np.testing.assert_array_equal(got, padded(TW, Rp, Sp))
+
+
+def test_tensor_core_launch_shapes_fit_the_card():
+    """Every split the tensor-core instance takes, at the served and small
+    shapes, launches within its bounds; the served shape runs four teams,
+    each computing H once per channel (all four batch rows)."""
+    assert TL.tc_launch_shape(64, 32, 4, 1024, 864, 132)[::4] == (4, 4)
+    for R in range(1, TL.TC_MAX_R + 1):
+        for S in (1, 7, 8, 15, 27, 32, 33, 50, 64):
+            L = (R * S + 1) // 2
+            for B, D in ((4, 864), (1, 3)):
+                teams, threads, smem, grid, bpu = TL.tc_launch_shape(R, S, B, L, D, 132)
+                MT, NT, _ = TL._tc_dims(R, S)
+                assert 1 <= teams <= min(TL.TC_MAX_TEAMS, D)
+                assert threads == 32 * MT * teams <= (512 if NT <= 4 else 256)
+                assert smem == TL.tc_smem_bytes(R, S, L, teams) <= TL.SMEM_PER_BLOCK
+                assert 1 <= grid and 1 <= bpu <= B
 
 
 # the shapes of tests/test_conv_backends_prop.py::test_twolevel_pallas_gated_tail_blocks

@@ -29,7 +29,8 @@ pytestmark = pytest.mark.cuda
 
 # (rtol, atol): fp32 outputs differ by the order of the DFT sums; bf16
 # outputs may land one bf16 ulp (2^-7 of the value) apart, plus the gate's
-# own rounding
+# own rounding, and the two-level kernel's TF32 products stay inside atol
+# (kernels/twolevel_fft.py::TOLERANCE derives it)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -6, 2.0 ** -10)}
 
 
@@ -59,6 +60,8 @@ def _inputs(B, L, D, dtype, device, seed=0):
     (2, 1000, 33, None),  # N = 2000 = 40·50
     (2, 1024, 64, (32, 64)),  # a non-default split of N = 2048
     (1, 8192, 4, None),  # the largest L the kernel takes
+    (1, 1, 3, None),  # L = 1: N = 1 = 1·1
+    (2, 17, 5, None),  # N = 36 = 6·6
 ])
 def test_twolevel_kernel_matches_plain(cuda, dtype, B, L, D, factors):
     u, h, skip, gate = _inputs(B, L, D, dtype, cuda, seed=L + D)
@@ -88,19 +91,43 @@ def test_twolevel_kernel_counts_launches_and_refuses(cuda):
 
 
 def test_launch_with_spectrum_is_the_wrapper_without_h(cuda):
-    """The kernel alone, given the spectrum, computes what the wrapper does
-    (bit for bit), counts its launch, and refuses a spectrum that does not
-    fit u."""
+    """The kernel alone, given the spectrum, computes the wrapper's function
+    (within TOL of the plain version: the wrapper's bf16 launch computes H
+    itself in TF32, this one reads the plain version's fp32 H), counts its
+    launch, and refuses a spectrum that does not fit u."""
     u, h, skip, gate = _inputs(2, 1000, 33, torch.bfloat16, cuda)
     H = filter_spectrum(h, 2000, (40, 50))
     before = twolevel_fft_conv.launches
     got = launch_with_spectrum(u, H, skip, gate)
     assert twolevel_fft_conv.launches == before + 1
-    assert torch.equal(got, twolevel_fft_conv(u, h, skip, gate, factors=(40, 50)))
+    rtol, atol = TOL[torch.bfloat16]
+    want = blockfft_causal_conv(u, h, skip, gate, factors=(40, 50))
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
     with pytest.raises(ValueError, match="complex64 spectrum"):
         launch_with_spectrum(u[:, :500], H, skip, gate[:, :500])  # N = 1000
     with pytest.raises(ValueError, match="complex64 spectrum"):
         launch_with_spectrum(u, H.real, skip, gate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_twolevel_kernel_reads_the_model_paths_views(cuda, dtype):
+    """u and the gate as torch.split views of the projection and h sliced
+    from the max_len grid, as models/hyena.py passes them: one launch, and
+    bit for bit what contiguous copies give."""
+    B, L, D = 2, 1024, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    z = torch.randn(B, L, 3 * D, generator=g, device=cuda).to(dtype)
+    h = (torch.randn(D, 2048, generator=g, device=cuda) / L)[:, :L]
+    skip = torch.randn(D, generator=g, device=cuda).to(dtype)
+    u, gate, _ = torch.split(z, D, dim=-1)
+    before = twolevel_fft_conv.launches
+    got = twolevel_fft_conv(u, h, skip, gate)
+    assert twolevel_fft_conv.launches == before + 1
+    assert torch.equal(got, twolevel_fft_conv(u.contiguous(), h.contiguous(), skip,
+                                              gate.contiguous()))
+    rtol, atol = TOL[dtype]
+    want = blockfft_causal_conv(u, h, skip, gate)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
 def test_generate_on_cuda_launches_the_kernel_per_order_and_layer(cuda):
