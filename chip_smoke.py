@@ -9,8 +9,9 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
 
 1. Build every CUDA kernel of the served path from ``csrc/`` with ``nvcc``
    (sm_90a), timed; print ptxas's registers and spills of every kernel
-   (raised if an instance of the flash kernel's bf16 path or of the
-   two-level conv's tensor-core path spills); print the card's name and
+   (raised if an instance of the flash kernel's bf16 path, of the
+   two-level conv's or the toeplitz conv's tensor-core path, or of
+   RMSNorm's row-tile kernel spills); print the card's name and
    power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
@@ -26,8 +27,10 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    transposed views, and in bf16 the edges of its key tiles: an Lk that is
    no multiple of the tile with Lq != Lk, a window ending inside a tile,
    Dh 64 and 256 at L = 512, rows that see no key, and views whose rows
-   start off 16 bytes, for its element-wise instance); print each max
-   error beside its tolerance and raise past it.  Float32 matmuls run in
+   start off 16 bytes, for its element-wise instance; for the toeplitz
+   conv, whose bf16 path runs on the tensor cores, B = 4 at L = 2048,
+   chunks of 64 and 256, L = 1, 37, 97 and 1000 and a banded call); print
+   each max error beside its tolerance and raise past it.  Float32 matmuls run in
    full fp32 (``torch.backends.cuda.matmul.allow_tf32 = False``).  The short conv
    kernel at hyena-153m's projection (B=4, L=1024, (N+1)·D = 2592, K=3,
    bf16, gated and ungated) and at K=1, K=4, K=8 with L < K−1, L=1, a
@@ -74,6 +77,10 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    phi4-mini's rows, in bf16.  The counters must show exactly one launch
    per call, and each output must be finite, of the input's shape and
    dtype, and agree with the plain version.
+3e. The two-level backend's range on the card: ``generate()`` of
+   hyena-153m on ``blockfft_overlap`` with an 8193-token prompt must raise
+   ``ValueError`` from ``lm.prefill``'s length check with every kernel
+   counter still at 0 (nothing launched).
 4. Times (CUDA events; the host clock around synchronised work for the
    served paths): prefill ms, decode ms per step and tokens/s of
    ``generate()`` for hyena-153m and for phi4-mini; the engine's wall time, new tokens/s, ms per admission
@@ -81,6 +88,9 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    the wrapper; for the FFT conv one launch that computes the filter
    spectrum too, timed in turns with the ``torch.fft`` conv, with its device
    time from ``torch.profiler`` and its TFLOP/s of dense four-step products;
+   the toeplitz conv likewise in turns with the ``torch.fft`` conv at B = 1
+   and B = 4, with its device time and its TFLOP/s of the chunked form's
+   products;
    ``kernel_ms`` is the launch given H; then each two-level instance's
    registers, shared memory and spill bytes from the ptxas report)
    beside its plain version, the ``torch.fft`` conv of the same function
@@ -100,8 +110,9 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    and spill bytes from the ptxas report.  The short conv and RMSNorm
    kernels at the shapes of phase 3d, each call on one of several input
    sets that together exceed the 50 MB L2 cache (a caller finds them
-   cold): the wrapper's ms by CUDA events and the kernel's device ms by
-   ``torch.profiler``, beside the plain version, a library yardstick the
+   cold): the wrapper's ms by CUDA events (RMSNorm's in turns with the
+   library) and the kernel's device ms by ``torch.profiler`` (RMSNorm's
+   beside the library call's), beside the plain version, a library yardstick the
    port never calls (``F.conv1d(groups=D)`` with causal padding, then the
    gate; ``F.rms_norm(weight=1+g)``) and the bound, the bytes the function
    must move (u, the gate and the output, or x and y, once; w or g once)
@@ -138,10 +149,11 @@ ATTN_ARCH = "phi4-mini-3.8b"
 
 # kernel against plain version: bf16 outputs may land one bf16 ulp apart
 # (2^-7 of the value) where the fp32 sums straddle a rounding boundary, and
-# the gate multiply adds its own rounding; the two-level conv's TF32
-# products stay inside atol (derived beside
-# kernels/twolevel_fft.py::TOLERANCE, which check_twolevel holds equal);
-# fp32 outputs differ only by the order of the DFT sums.
+# the gate multiply adds its own rounding; the two-level and toeplitz
+# convs' TF32 products stay inside atol (derived beside
+# kernels/twolevel_fft.py::TOLERANCE and kernels/toeplitz_conv.py::TOLERANCE,
+# which check_twolevel and check_toeplitz hold equal); fp32 outputs differ
+# only by the order of the sums.
 TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -6, 2.0 ** -10)}  # (rtol, atol)
 # flash attention against its plain version: fp32 outputs differ only by
 # the order of the fp32 sums; the bf16 kernel rounds p to bf16 (relative
@@ -293,11 +305,52 @@ def twolevel_instances():
     return out
 
 
-def log_twolevel_instances(instances) -> None:
+def toeplitz_instances():
+    """The toeplitz conv's instances from its ptxas report: the tensor-core
+    path's (CP padded chunk rows) and the CUDA-core fp32 kernel."""
+    import re
+
+    out = []
+    for inst in ptxas_report("toeplitz_conv"):
+        if m := re.search(r"toeplitz_tc_kernelILi(\d+)E", inst["function"]):
+            out.append(inst | {"path": "tc", "label": f"tensor cores CP={m.group(1)}"})
+        elif "toeplitz_conv_kernel" in inst["function"]:
+            out.append(inst | {"path": "core", "label": "CUDA cores fp32"})
+    return out
+
+
+def rmsnorm_instances():
+    """RMSNorm's instances from its ptxas report: the row-tile kernel's
+    (dtype, V elements a chunk, NV chunks a lane) and the general kernel's."""
+    import re
+
+    out = []
+    for inst in ptxas_report("rmsnorm"):
+        if m := re.search(r"rmsnorm_rows_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                          inst["function"]):
+            dtype = "fp32" if m.group(1) == "f" else "bf16"
+            out.append(inst | {"path": "rows",
+                               "label": f"row tiles {dtype} V={m.group(2)} NV={m.group(3)}"})
+        elif "rmsnorm_kernel" in inst["function"]:
+            out.append(inst | {"path": "general", "label": "general " + inst["function"][:40]})
+    return out
+
+
+def log_instances(kernel, instances) -> None:
     for i in instances:
-        log(f"  twolevel instance {i['label']}: {i['registers']} registers, {i['smem']} B "
+        log(f"  {kernel} instance {i['label']}: {i['registers']} registers, {i['smem']} B "
             f"static shared memory, spill stores {i['spill_stores']} B, spill loads "
             f"{i['spill_loads']} B")
+
+
+def toeplitz_flops(B, L, D, C, K) -> float:
+    """The chunked form's products of one toeplitz call: 2·C² operations
+    (a multiply and an add) per (output chunk, chunk diagonal), batch row
+    and channel, the diagonal blocks counted whole (1.02 GFLOP at B = 1,
+    L = 1024, D = 864, C = 128).  The tensor-core kernel computes more: it
+    pads the columns to tiles of eight and C to CP rows."""
+    n = -(-L // C)
+    return 2.0 * C * C * B * D * sum(min(i + 1, K) for i in range(n))
 
 
 def fourstep_flops(B, L, D) -> float:
@@ -472,45 +525,58 @@ def check_toeplitz(device) -> float:
     admission shape (B=1, L=1024, bf16, gated, skip)."""
     import torch
 
+    from repro_torch.kernels.toeplitz_conv import TOLERANCE as TT_TOLERANCE
     from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
 
+    if {str(d).split(".")[-1]: t for d, t in TT_TOLERANCE.items()} != TOLERANCE:
+        raise RuntimeError("TOLERANCE is not the toeplitz kernel module's TOLERANCE")
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # (B, L, D, dtype, gated, with skip, n_chunk_diags)
-        (1, 1024, 864, torch.bfloat16, True, True, None),  # an admission
-        (1, 1024, 864, torch.float32, False, True, None),
-        (4, 1024, 864, torch.bfloat16, True, True, None),
-        (4, 1024, 864, torch.float32, True, False, None),
-        (1, 1000, 864, torch.bfloat16, True, True, None),  # L not a multiple of C
-        (1, 1000, 864, torch.float32, False, False, None),
-        (1, 37, 864, torch.bfloat16, True, True, None),  # L < C
-        (1, 37, 864, torch.float32, True, False, None),
-        (1, 1, 864, torch.bfloat16, True, True, None),  # L = 1
-        (1, 1, 864, torch.float32, False, True, None),
-        (2, 300, 865, torch.float32, True, True, 2),  # banded, ragged tile
-        (2, 300, 865, torch.bfloat16, False, False, 2),
+        # (B, L, D, dtype, gated, with skip, n_chunk_diags, chunk)
+        (1, 1024, 864, bf16, True, True, None, 128),  # an admission
+        (1, 1024, 864, f32, False, True, None, 128),
+        (4, 1024, 864, bf16, True, True, None, 128),
+        (4, 1024, 864, f32, True, False, None, 128),
+        (1, 1000, 864, bf16, True, True, None, 128),  # L not a multiple of C
+        (1, 1000, 864, f32, False, False, None, 128),
+        (1, 37, 864, bf16, True, True, None, 128),  # L < C
+        (1, 37, 864, f32, True, False, None, 128),
+        (1, 97, 864, bf16, True, True, None, 128),  # one chunk padded to 128 rows
+        (1, 1, 864, bf16, True, True, None, 128),  # L = 1
+        (1, 1, 864, f32, False, True, None, 128),
+        (2, 300, 865, f32, True, True, 2, 128),  # banded, ragged tile
+        (2, 300, 865, bf16, False, False, 2, 128),
+        (4, 2048, 864, bf16, True, True, None, 128),  # 64 columns, 16 diagonals
+        (4, 2048, 864, f32, True, True, None, 128),
+        (1, 2048, 864, bf16, True, True, None, 256),  # two row strips a channel
+        (2, 1000, 865, bf16, False, True, None, 256),
+        (2, 1000, 865, bf16, True, True, None, 64),  # 16 columns a batch row
+        (1, 1024, 864, bf16, True, False, 3, 64),
     ]
     errs = []
-    for i, (B, L, D, dtype, gated, with_skip, K) in enumerate(cases):
+    for i, (B, L, D, dtype, gated, with_skip, K, chunk) in enumerate(cases):
         u, h, skip, gate = conv_inputs(B, L, D, dtype, seed=200 + i, device=device)
         skip = skip if with_skip else None
         gate = gate if gated else None
         errs.append(compare(
-            "toeplitz_conv", toeplitz_conv(u, h, skip, gate, n_chunk_diags=K),
-            toeplitz_conv_plain(u, h, skip, gate, n_chunk_diags=K), dtype,
-            f"B={B} L={L} D={D} {str(dtype)[6:]} gate={gated} skip={with_skip} K={K}",
+            "toeplitz_conv", toeplitz_conv(u, h, skip, gate, chunk=chunk, n_chunk_diags=K),
+            toeplitz_conv_plain(u, h, skip, gate, chunk=chunk, n_chunk_diags=K), dtype,
+            f"B={B} L={L} D={D} {str(dtype)[6:]} gate={gated} skip={with_skip} K={K} "
+            f"chunk={chunk}",
         ))
     # the model path's operands: torch.split views and the max_len filter
     # sliced to L, read in place
     g = torch.Generator(device=device).manual_seed(7)
-    z = torch.randn(1, PROMPT_LEN, 3 * 864, generator=g, device=device).bfloat16()
-    h = torch.randn(864, MAX_LEN, generator=g, device=device)[:, :PROMPT_LEN] / PROMPT_LEN
-    u, gate, skip = z[..., :864], z[..., 864:1728], torch.randn(864, device=device)
-    fused = toeplitz_conv(u, h, skip, gate)
-    compare("toeplitz_conv", fused,
-            toeplitz_conv_plain(u.contiguous(), h.contiguous(), skip, gate.contiguous()),
-            torch.bfloat16, "B=1 L=1024 D=864 bfloat16 views of the projection")
-    if not torch.equal(fused, gate * toeplitz_conv(u, h, skip)):
-        raise RuntimeError("toeplitz_conv: gated output is not gate * ungated")
+    for B in (1, 4):
+        z = torch.randn(B, PROMPT_LEN, 3 * 864, generator=g, device=device).bfloat16()
+        h = torch.randn(864, MAX_LEN, generator=g, device=device)[:, :PROMPT_LEN] / PROMPT_LEN
+        u, gate, skip = z[..., :864], z[..., 864:1728], torch.randn(864, device=device)
+        fused = toeplitz_conv(u, h, skip, gate)
+        compare("toeplitz_conv", fused,
+                toeplitz_conv_plain(u.contiguous(), h.contiguous(), skip, gate.contiguous()),
+                torch.bfloat16, f"B={B} L=1024 D=864 bfloat16 views of the projection")
+        if not torch.equal(fused, gate * toeplitz_conv(u, h, skip)):
+            raise RuntimeError("toeplitz_conv: gated output is not gate * ungated")
     log("  toeplitz_conv: gated output equals gate * ungated bit for bit")
     for bad, kw in ((u.half(), {}), (u, {"chunk": 512})):
         try:
@@ -804,11 +870,12 @@ def cold_ms(fn, arg_sets, iters: int = 24, warmup: int = 3) -> float:
     return cuda_ms(step, iters=iters, warmup=warmup)
 
 
-def kernel_device_ms(fn, arg_sets, kernel_name: str, iters: int = 24):
+def kernel_device_ms(fn, arg_sets, kernel_name, iters: int = 24):
     """Device time per launch of the kernels whose name holds
     ``kernel_name``, traced by torch.profiler over ``iters`` calls of
-    ``fn`` cycling over ``arg_sets``; None where the trace holds no device
-    time."""
+    ``fn`` cycling over ``arg_sets``; with ``kernel_name`` None, the device
+    time of every kernel a call runs, per call.  None where the trace holds
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -820,10 +887,12 @@ def kernel_device_ms(fn, arg_sets, kernel_name: str, iters: int = 24):
         torch.cuda.synchronize()
     us, n = 0.0, 0
     for e in prof.key_averages():
-        if kernel_name in e.key and str(e.device_type).endswith("CUDA"):
+        if str(e.device_type).endswith("CUDA") and (kernel_name is None or kernel_name in e.key):
             us += (getattr(e, "self_device_time_total", None)
                    or getattr(e, "self_cuda_time_total", 0))
             n += e.count
+    if kernel_name is None:
+        n = iters if n else 0
     return us / n / 1e3 if n and us else None
 
 
@@ -909,8 +978,11 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
-    from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
-    from repro_torch.kernels.twolevel_fft import launch_with_spectrum, tc_launch_shape
+    from repro_torch.kernels.toeplitz_conv import chunking, toeplitz_conv, toeplitz_conv_plain
+    from repro_torch.kernels.toeplitz_conv import tc_launch_shape
+    from repro_torch.kernels.twolevel_fft import MAX_N as TWOLEVEL_MAX_N
+    from repro_torch.kernels.twolevel_fft import launch_with_spectrum
+    from repro_torch.kernels.twolevel_fft import tc_launch_shape as twolevel_launch_shape
     from repro_torch.kernels.twolevel_fft import twolevel_fft_conv
     from repro_torch.models import lm
     from repro_torch.models.mixer_api import ApplyContext
@@ -944,6 +1016,16 @@ def main() -> int:
     if len(tc_inst) != 16 or spills:
         raise RuntimeError(f"the 16 tensor-core two-level instances must build without "
                            f"spills: {spills}")
+    tt_inst, rn_inst = toeplitz_instances(), rmsnorm_instances()
+    log_instances("toeplitz", tt_inst)
+    log_instances("rmsnorm", rn_inst)
+    for kernel, insts, path, want in (("toeplitz", tt_inst, "tc", 5),
+                                      ("rmsnorm", rn_inst, "rows", 24)):
+        mine = [i for i in insts if i["path"] == path]
+        spills = [i["label"] for i in mine if i["spill_stores"] or i["spill_loads"]]
+        if len(mine) != want or spills:
+            raise RuntimeError(f"the {want} {kernel} {path} instances must build without "
+                               f"spills: {len(mine)} built, spilling {spills}")
     log(f"  card: {card}")
     log("  torch.backends.cuda.matmul.allow_tf32 = False (fp32 matmuls in full fp32)")
 
@@ -1170,6 +1252,29 @@ def main() -> int:
                 SHORT_CONV_TOLERANCE if name == "short_conv_gate" else NORM_TOLERANCE)
     del sc_out, norm_out
 
+    # ---- phase 3e: the two-level backend refuses past its kernel's range
+    # before any work
+    long_len = TWOLEVEL_MAX_N // 2 + 1  # 8193: one past the kernel's range
+    log(f"phase 3e: {ARCH} on blockfft_overlap, a {long_len}-token prompt")
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, long_len), generator=g, device=device)
+    torch.cuda.synchronize()
+    zero_counts()
+    try:
+        generate(params, cfg, long_prompt, max_new_tokens=2,
+                 scfg=ServeConfig(max_len=long_len + 8, conv_backend="blockfft_overlap"))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise RuntimeError(f"generate() took a {long_len}-token prompt on blockfft_overlap")
+    torch.cuda.synchronize()
+    counts = (twolevel_fft_conv.launches, toeplitz_conv.launches, flash_attention.launches,
+              short_conv_gate.launches, rmsnorm.launches)
+    log(f"  refused: {refusal}; kernel launches {counts}")
+    if any(counts):
+        raise RuntimeError("the refused prefill launched a kernel")
+    del long_prompt
+
     # ---- phase 4: times
     log(f"phase 4: times on {card}")
     with torch.no_grad():
@@ -1231,8 +1336,8 @@ def main() -> int:
         f"({100 * kbound_ms / kernel_ms:.2f} %); plain blockfft {p_ms:.4f} ms; torch.fft conv "
         f"{f_ms:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}) in turns with it, "
         f"{k_ms / f_ms:.2f}x its time")
-    log_twolevel_instances(tl_inst)
-    tc_smem = tc_launch_shape(*resolve_factors(N, None), BATCH, PROMPT_LEN, cfg.d_model,
+    log_instances("twolevel", tl_inst)
+    tc_smem = twolevel_launch_shape(*resolve_factors(N, None), BATCH, PROMPT_LEN, cfg.d_model,
                               torch.cuda.get_device_properties(0).multi_processor_count)
     log(f"  the served launch: {tc_smem[0]} teams of 4 warps ({tc_smem[1]} threads) a block, "
         f"{tc_smem[2]} B of dynamic shared memory, {tc_smem[3]} blocks, {tc_smem[4]} batch "
@@ -1253,22 +1358,40 @@ def main() -> int:
                                           ctx=ApplyContext(conv_backend="toeplitz")),
                        "admission prefill (toeplitz, L=1024)")
 
-    u, h, skip, gate = conv_inputs(1, PROMPT_LEN, cfg.d_model, torch.bfloat16, 8, device)
-    u4, h4, skip4, gate4 = conv_inputs(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16, 9, device)
-    with torch.no_grad():
-        saved = toeplitz_conv.launches
-        t_ms = cuda_ms(lambda: ops.toeplitz_conv(u, h, skip, gate))
-        t4_ms = cuda_ms(lambda: ops.toeplitz_conv(u4, h4, skip4, gate4))
-        toeplitz_conv.launches = saved  # timing launches are not the path's
-        tp_ms = cuda_ms(lambda: toeplitz_conv_plain(u, h, skip, gate))
-        tf_ms = cuda_ms(lambda: fft_causal_conv(u, h, skip, gate))
-        tf4_ms = cuda_ms(lambda: fft_causal_conv(u4, h4, skip4, gate4))
-    tb_ms, tb_by = conv_bound_ms(1, PROMPT_LEN, cfg.d_model, torch.bfloat16)
-    t4b_ms, _ = conv_bound_ms(BATCH, PROMPT_LEN, cfg.d_model, torch.bfloat16)
-    log(f"  toeplitz_conv (B=1, L={PROMPT_LEN}, D={cfg.d_model}, bf16, gated): {t_ms:.4f} "
-        f"ms/call, bound {tb_ms:.4f} ms by {tb_by} ({100 * tb_ms / t_ms:.2f} % of it); plain "
-        f"{tp_ms:.4f} ms; torch.fft conv {tf_ms:.4f} ms; at B={BATCH}: {t4_ms:.4f} ms/call, "
-        f"bound {t4b_ms:.4f} ms, torch.fft conv {tf4_ms:.4f} ms")
+    tt = {}
+    for B, seed in ((1, 8), (BATCH, 9)):
+        u, h, skip, gate = conv_inputs(B, PROMPT_LEN, cfg.d_model, torch.bfloat16, seed, device)
+        t_kernel = lambda: ops.toeplitz_conv(u, h, skip, gate)
+        t_library = lambda: fft_causal_conv(u, h, skip, gate)
+        with torch.no_grad():
+            saved = toeplitz_conv.launches
+            # in turns, kernel, library, library, kernel
+            turns = [cuda_ms(fn, iters=50) for fn in (t_kernel, t_library, t_library, t_kernel)]
+            dev_ms = kernel_device_ms(t_kernel, [()], "toeplitz")
+            toeplitz_conv.launches = saved  # timing launches are not the path's
+            plain_ms = cuda_ms(lambda: toeplitz_conv_plain(u, h, skip, gate)) if B == 1 else None
+        C, _, K = chunking(PROMPT_LEN, 128, None)
+        flops = toeplitz_flops(B, PROMPT_LEN, cfg.d_model, C, K)
+        tt[B] = {"ms": (turns[0] + turns[3]) / 2, "library_ms": (turns[1] + turns[2]) / 2,
+                 "turns": turns, "device_ms": dev_ms, "plain_ms": plain_ms, "flops": flops,
+                 "bound": conv_bound_ms(B, PROMPT_LEN, cfg.d_model, torch.bfloat16)}
+    for B, t in tt.items():
+        b_ms, b_by = t["bound"]
+        tflops = t["flops"] / (t["device_ms"] or t["ms"]) / 1e9
+        t["tflops"] = tflops
+        plain = "" if t["plain_ms"] is None else f"; plain {t['plain_ms']:.4f} ms"
+        log(f"  toeplitz_conv (B={B}, L={PROMPT_LEN}, D={cfg.d_model}, bf16, gated, skip): "
+            f"{t['ms']:.4f} ms/call ({t['turns'][0]:.4f}, {t['turns'][3]:.4f}), device time "
+            f"{dev(t['device_ms'])}, {tflops:.1f} TFLOP/s of the {t['flops'] / 1e9:.2f} GFLOP of "
+            f"the chunked form's products; bound {b_ms:.4f} ms by {b_by} "
+            f"({100 * b_ms / t['ms']:.2f} % of it){plain}; torch.fft conv "
+            f"{t['library_ms']:.4f} ms ({t['turns'][1]:.4f}, {t['turns'][2]:.4f}) in turns "
+            f"with it, {t['ms'] / t['library_ms']:.2f}x its time")
+    tc_plan = tc_launch_shape(cfg.d_model, 128, torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"  the admission's toeplitz launch: {tc_plan[0]} channels a block ({tc_plan[1]} "
+        f"threads), {tc_plan[2]} B of dynamic shared memory, {tc_plan[3]} blocks")
+    t_ms, tp_ms, tf_ms = tt[1]["ms"], tt[1]["plain_ms"], tt[1]["library_ms"]
+    tb_ms, tb_by = tt[1]["bound"]
 
     # phi4-mini: the served path and the flash kernel at its shape
     with torch.no_grad():
@@ -1357,9 +1480,9 @@ def main() -> int:
                  - short_conv_gate_plain(u, w_sc, gate).float()).abs().max().item()
     for gated, t in sc_times.items():
         b_ms, b_by = t["bound"]
-        dev = "not measured" if t["kernel_ms"] is None else f"{t['kernel_ms']:.4f} ms"
         log(f"  short_conv_gate (B={BATCH}, L={PROMPT_LEN}, {sc_D} channels, K={sc_K}, bf16, "
-            f"gate={gated}): {t['ms']:.4f} ms/call (the kernel's device time {dev}), bound "
+            f"gate={gated}): {t['ms']:.4f} ms/call (the kernel's device time "
+            f"{dev(t['kernel_ms'])}), bound "
             f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / t['ms']:.2f} % of it); plain "
             f"{t['plain_ms']:.4f} ms; F.conv1d(groups=D) + gate {t['library_ms']:.4f} ms")
     log(f"  F.conv1d yardstick's max abs difference from the plain version (bf16, gated) "
@@ -1373,26 +1496,30 @@ def main() -> int:
             sets = [(torch.randn_like(x0), g0) for _ in range(n_sets)]
             weight = (1.0 + g0).bfloat16()
             lib_sets = [(x, weight) for x, _ in sets]
+            library = lambda x, wt: torch.nn.functional.rms_norm(x, (x.shape[-1],), wt, 1e-6)
             saved = rmsnorm.launches
-            ms = cold_ms(ops.rmsnorm, sets)
-            dev_ms = kernel_device_ms(ops.rmsnorm, sets, "rmsnorm_kernel")
+            # in turns, kernel, library, library, kernel
+            turns = [cold_ms(fn, st) for fn, st in ((ops.rmsnorm, sets), (library, lib_sets),
+                                                     (library, lib_sets), (ops.rmsnorm, sets))]
+            dev_ms = kernel_device_ms(ops.rmsnorm, sets, "rmsnorm")
             rmsnorm.launches = saved  # timing launches are not the path's
             norm_times[d] = {
-                "ms": ms, "kernel_ms": dev_ms,
+                "ms": (turns[0] + turns[3]) / 2, "kernel_ms": dev_ms, "turns": turns,
                 "plain_ms": cold_ms(rmsnorm_plain, sets),
-                "library_ms": cold_ms(
-                    lambda x, wt: torch.nn.functional.rms_norm(x, (x.shape[-1],), wt, 1e-6),
-                    lib_sets),
+                "library_ms": (turns[1] + turns[2]) / 2,
+                "library_device_ms": kernel_device_ms(library, lib_sets, None),
                 "bound": rmsnorm_bound_ms(BATCH * PROMPT_LEN, d, torch.bfloat16, torch.float32),
             }
             del sets, lib_sets
     for d, t in norm_times.items():
         b_ms, b_by = t["bound"]
-        dev = "not measured" if t["kernel_ms"] is None else f"{t['kernel_ms']:.4f} ms"
-        log(f"  rmsnorm (x ({BATCH}, {PROMPT_LEN}, {d}) bf16, g fp32): {t['ms']:.4f} ms/call "
-            f"(the kernel's device time {dev}), bound {b_ms:.4f} ms by {b_by} "
-            f"({100 * b_ms / t['ms']:.2f} % of it); plain {t['plain_ms']:.4f} ms; "
-            f"F.rms_norm(weight=1+g) {t['library_ms']:.4f} ms")
+        kd, ld = t["kernel_ms"], t["library_device_ms"]
+        share = "" if kd is None else f", {100 * b_ms / kd:.1f} % of the bound"
+        log(f"  rmsnorm (x ({BATCH}, {PROMPT_LEN}, {d}) bf16, g fp32): the kernel's device time "
+            f"{dev(kd)}{share}, F.rms_norm(weight=1+g)'s {dev(ld)}; wrapper {t['ms']:.4f} ms/call "
+            f"({t['turns'][0]:.4f}, {t['turns'][3]:.4f}), F.rms_norm {t['library_ms']:.4f} ms "
+            f"({t['turns'][1]:.4f}, {t['turns'][2]:.4f}) in turns with it; bound {b_ms:.4f} ms "
+            f"by {b_by}; plain {t['plain_ms']:.4f} ms")
 
     log(card)
     print(json.dumps({"kernels": [{
@@ -1414,14 +1541,18 @@ def main() -> int:
         "replaces": "src/repro/kernels/toeplitz_conv.py:42",
         "launches": t_launches,
         "max_abs_err": toeplitz_err,
-        "ms": t_ms,
+        "ms": t_ms,  # the wrapper at B=1, in turns with the library
+        "device_ms": tt[1]["device_ms"],  # its device time by torch.profiler
+        "tflops": tt[1]["tflops"],  # the chunked form's products over the device time
         "plain_ms": tp_ms,
         "bound_ms": tb_ms,
         "bound_by": tb_by,
         "library_ms": tf_ms,
-        "ms_b4": t4_ms,
-        "bound_ms_b4": t4b_ms,
-        "library_ms_b4": tf4_ms,
+        "ms_b4": tt[BATCH]["ms"],
+        "device_ms_b4": tt[BATCH]["device_ms"],
+        "tflops_b4": tt[BATCH]["tflops"],
+        "bound_ms_b4": tt[BATCH]["bound"][0],
+        "library_ms_b4": tt[BATCH]["library_ms"],
     }, {
         "name": "twolevel_fft_conv",
         "route": "cuda",
@@ -1466,7 +1597,9 @@ def main() -> int:
         "bound_ms": norm_times[cfg.d_model]["bound"][0],
         "bound_by": norm_times[cfg.d_model]["bound"][1],
         "library_ms": norm_times[cfg.d_model]["library_ms"],
-        f"d{acfg.d_model}": {k: v for k, v in norm_times[acfg.d_model].items() if k != "bound"}
+        "library_device_ms": norm_times[cfg.d_model]["library_device_ms"],
+        f"d{acfg.d_model}": {k: v for k, v in norm_times[acfg.d_model].items()
+                             if k not in ("bound", "turns")}
         | {"bound_ms": norm_times[acfg.d_model]["bound"][0]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -23,6 +23,10 @@ import dataclasses
 import os
 from typing import Callable, Dict, Optional
 
+import torch
+
+from repro_torch.kernels.twolevel_fft import MAX_N as _TWOLEVEL_MAX_N
+
 ENV_VAR = "REPRO_CONV_BACKEND"
 DEFAULT_BACKEND = "fft"
 
@@ -36,11 +40,21 @@ class ConvBackend:
     description: str = ""
     max_len: int = 0  # 0 = unconstrained; else largest supported L
     supports_gate: bool = False  # fn fuses the elementwise output gate
+    # 0 = as on the CPU; else the largest L that the backend's CUDA kernel
+    # takes (on CPU tensors the backend runs its plain version, any L)
+    cuda_max_len: int = 0
 
-    def validate_len(self, L: int) -> None:
-        if self.max_len and L > self.max_len:
+    def validate_len(self, L: int, device=None) -> None:
+        """Raise unless the backend takes length L; on a CUDA ``device``
+        also the range of its kernel, so that a model refuses the length
+        before any work instead of failing mid-forward."""
+        limit, where = self.max_len, ""
+        if self.cuda_max_len and device is not None and torch.device(device).type == "cuda":
+            if not limit or self.cuda_max_len < limit:
+                limit, where = self.cuda_max_len, " on CUDA"
+        if limit and L > limit:
             raise ValueError(
-                f"conv backend '{self.name}' supports L <= {self.max_len}, "
+                f"conv backend '{self.name}' supports L <= {limit}{where}, "
                 f"got {L}"
             )
 
@@ -153,10 +167,11 @@ register_conv_backend(ConvBackend(
 ))
 register_conv_backend(ConvBackend(
     name="blockfft_overlap", fn=_blockfft_overlap,
-    supports_gate=True,
+    supports_gate=True, cuda_max_len=_TWOLEVEL_MAX_N // 2,
     description="two-level (inner R / outer S) FFT conv as one hand-written "
-    "CUDA kernel per call (kernels/twolevel_fft.py); on CPU tensors its "
-    "plain four-step version.",
+    "CUDA kernel per call (kernels/twolevel_fft.py), within the kernel's "
+    "range on CUDA tensors; on CPU tensors its plain four-step version, "
+    "any L.",
 ))
 register_conv_backend(ConvBackend(
     name="toeplitz", fn=_toeplitz, supports_gate=True,

@@ -12,10 +12,14 @@ dtype.  The model's norm (``models/layers.py::apply_norm``) adds 1 to g in
 g's own dtype, so this function is not a drop-in for it, and no model path
 routes through it.
 
-Kernel (``csrc/rmsnorm.cu``): one warp per row sums the squares in fp32
-with warp shuffles, then scales the row; its lanes read 16 bytes at a time
-where the rows allow it.  What bounds it on the card: its
-bytes (x and y once).  It takes any leading dims (flattened to rows), any
+Kernel (``csrc/rmsnorm.cu``): one to eight warps own a row and start
+every load of it at once, 16 bytes a lane where the rows allow it and one
+element otherwise, each lane holding a number of chunks fixed at compile
+time; they sum the squares in fp32 with warp shuffles and scale the row
+from registers, with 1 + g staged in shared memory once per block, and
+the blocks walk the rows.  Widths past what that holds take a general
+kernel that reads the row twice.  What bounds it on the card: its bytes
+(x and y once).  It takes any leading dims (flattened to rows), any
 D >= 1, fp32 or bf16 ``x``, fp32 or bf16 ``g``, and an ``x`` whose last dim
 is unit-stride; it raises on anything else.
 

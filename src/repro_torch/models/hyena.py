@@ -78,6 +78,7 @@ class HyenaMixer(TokenMixer):
     """The paper's operator as a drop-in token mixer (Def. 3.1)."""
 
     name = "hyena"
+    uses_conv_backend = True
 
     def make_config(self, cfg) -> HyenaConfig:
         return HyenaConfig(

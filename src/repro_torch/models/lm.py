@@ -16,9 +16,10 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ModelConfig, check_supported
+from repro_torch.core.conv_api import get_conv_backend
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import apply_norm, embed, init_embedding, init_norm
-from repro_torch.models.mixer_api import DEFAULT_CONTEXT, ApplyContext
+from repro_torch.models.mixer_api import DEFAULT_CONTEXT, ApplyContext, get_mixer
 
 
 def layer_mixers(cfg: ModelConfig) -> List[str]:
@@ -63,8 +64,13 @@ def prefill(
     ctx: Optional[ApplyContext] = None,
 ) -> Tuple[torch.Tensor, List[Any]]:
     """Prompt forward pass returning (logits (B, L, V) fp32, per-layer
-    caches).  ``compute_dtype`` defaults to the cache dtype."""
+    caches).  ``compute_dtype`` defaults to the cache dtype.  A long-conv
+    backend that does not take the prompt's length on this device raises
+    here, before any work."""
     ctx = ctx or DEFAULT_CONTEXT
+    L = tokens.shape[-1]
+    if any(get_mixer(m).uses_conv_backend for m in set(layer_mixers(cfg))):
+        get_conv_backend(ctx.conv_backend_for(L)).validate_len(L, tokens.device)
     x = embed(params["embed"], tokens, dtype=compute_dtype or dtype)
     caches = []
     for p, mixer in zip(params["blocks"], layer_mixers(cfg)):

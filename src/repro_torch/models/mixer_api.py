@@ -51,6 +51,9 @@ class TokenMixer:
     """Interface of a registered token mixer."""
 
     name: str = ""
+    # whether prefill runs the long conv of ``ApplyContext.conv_backend``
+    # (the LM checks that backend's length limit before any work)
+    uses_conv_backend: bool = False
 
     def make_config(self, cfg) -> Any:
         """ModelConfig -> mixer config (opaque to callers)."""

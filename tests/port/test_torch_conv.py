@@ -40,7 +40,7 @@ from repro_torch.models.hyena import hyena_prefill
 from repro_torch.kernels import twolevel_fft as TL
 from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
 
-from torch_port_util import TORCH_THREADS, free_jax_programs, t  # noqa: F401
+from torch_port_util import TORCH_THREADS, free_jax_programs, t, tf32  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -90,15 +90,6 @@ def test_launch_with_spectrum_refuses_cpu_tensors():
         launch_with_spectrum(u, H, skip, gate)
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to TF32 (10 explicit mantissa bits), to nearest with ties
-    away from zero: what the kernel's cvt.rna.tf32.f32 does."""
-    if x.is_complex():
-        return torch.complex(_tf32(x.real), _tf32(x.imag))
-    b = x.float().contiguous().view(torch.int32)
-    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
 def _tf32_blockfft_causal_conv(u, h, skip, gate, factors):
     """The bf16 kernel's rounding on the CPU: blockfft_causal_conv with the
     operands of each of its four products, and of the two that transform
@@ -108,18 +99,18 @@ def _tf32_blockfft_causal_conv(u, h, skip, gate, factors):
     N = next_fast_len(2 * L - 1)
     R, S = factors
     FR, FS, TW = (m.clone() for m in TB.dft_tables(N, (R, S), "cpu"))
-    FR, FS = _tf32(FR), _tf32(FS)
+    FR, FS = tf32(FR), tf32(FS)
 
     def forward(x):  # (B', N, D) real -> stage 2's output (B', R, S, D)
-        A = _tf32(x.reshape(x.shape[0], R, S, D).to(torch.complex64))
+        A = tf32(x.reshape(x.shape[0], R, S, D).to(torch.complex64))
         X = torch.einsum("kr,brsd->bksd", FR, A) * TW[None, :, :, None]
-        return torch.einsum("bksd,sj->bkjd", _tf32(X), FS)
+        return torch.einsum("bksd,sj->bkjd", tf32(X), FS)
 
     u32 = u.float()
     C = forward(torch.nn.functional.pad(u32, (0, 0, 0, N - L)))
     H = forward(torch.nn.functional.pad(h.float().T, (0, 0, 0, N - L))[None])
-    Dm = torch.einsum("bkjd,sj->bksd", _tf32(C * H), FS.conj()) * TW.conj()[None, :, :, None]
-    y = torch.einsum("kr,bksd->brsd", FR.conj(), _tf32(Dm)).real.reshape(B, N, D)[:, :L] / N
+    Dm = torch.einsum("bkjd,sj->bksd", tf32(C * H), FS.conj()) * TW.conj()[None, :, :, None]
+    y = torch.einsum("kr,bksd->brsd", FR.conj(), tf32(Dm)).real.reshape(B, N, D)[:, :L] / N
     if skip is not None:
         y = y + u32 * skip.float()
     y = y.to(u.dtype)
@@ -131,9 +122,9 @@ def test_twolevel_tolerance_states_the_tf32_bound():
     by round-to-nearest (ties away) is off by at most 2^-11 of the value."""
     assert TL.TOLERANCE == {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -6, 2.0 ** -10)}
     x = torch.tensor([1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 2.0 ** -11), 3.0, 0.0])
-    assert _tf32(x).tolist() == [1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10), 3.0, 0.0]
+    assert tf32(x).tolist() == [1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10), 3.0, 0.0]
     r = torch.from_numpy(np.random.default_rng(0).standard_normal(10_000).astype(np.float32))
-    assert ((_tf32(r) - r).abs() <= 2.0 ** -11 * r.abs()).all()
+    assert ((tf32(r) - r).abs() <= 2.0 ** -11 * r.abs()).all()
 
 
 @pytest.mark.parametrize("B,L,D,factors", [(2, 1024, 4, (64, 32)), (1, 37, 3, (5, 15)),
@@ -413,6 +404,41 @@ def test_resolve_conv_backend(monkeypatch):
     assert get_conv_backend("toeplitz").supports_gate
     with pytest.raises(ValueError, match="registered"):
         get_conv_backend("fft_sp")  # context parallelism: not ported yet
+
+
+def test_blockfft_overlap_refuses_past_the_kernel_range_on_cuda_only():
+    """On a CUDA device the backend's check refuses L past the two-level
+    kernel's range (MAX_N // 2 = 8192), so a model refuses before any work;
+    on the CPU, where the backend runs its plain version, it takes any L,
+    as the JAX backend does."""
+    backend = get_conv_backend("blockfft_overlap")
+    assert backend.cuda_max_len == TL.MAX_N // 2 == 8192
+    backend.validate_len(8192, torch.device("cuda"))
+    with pytest.raises(ValueError, match="L <= 8192 on CUDA, got 8193"):
+        backend.validate_len(8193, torch.device("cuda"))
+    backend.validate_len(8193, torch.device("cpu"))
+    backend.validate_len(8193)
+    get_conv_backend("blockfft").validate_len(8193, torch.device("cuda"))
+
+
+def test_prefill_checks_the_backend_length_before_the_embedding(monkeypatch):
+    """lm.prefill checks the length against the backend that ctx resolves,
+    before the embedding runs (here the CPU's one limited backend,
+    ``direct``, L <= 4096)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.mixer_api import ApplyContext
+
+    cfg = get_config("hyena-153m").reduced()
+    params = lm.init_lm(cfg, seed=0, device="cpu")
+
+    def no_embed(*args, **kw):
+        raise AssertionError("the embedding ran before the length check")
+
+    monkeypatch.setattr(lm, "embed", no_embed)
+    tokens = torch.zeros((1, 4097), dtype=torch.int64)
+    with pytest.raises(ValueError, match="supports L <= 4096, got 4097"):
+        lm.prefill(params, cfg, tokens, 4097, ctx=ApplyContext(conv_backend="direct"))
 
 
 @pytest.mark.parametrize("order", [2, 3])

@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.flash_attention import rows_aligned16
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
+from repro_torch.kernels.toeplitz_conv import TOLERANCE as TOEPLITZ_TOLERANCE
 from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
 from repro_torch.kernels.twolevel_fft import launch_with_spectrum, twolevel_fft_conv
 from repro_torch.serve.engine import ServeConfig, ServeEngine, generate
@@ -166,6 +167,31 @@ def test_toeplitz_kernel_matches_plain(cuda, dtype, B, L, D, K):
         assert got.dtype == dtype and got.shape == u.shape
     fused = toeplitz_conv(u, h, skip, gate, n_chunk_diags=K)
     assert torch.equal(fused, gate * toeplitz_conv(u, h, skip, n_chunk_diags=K))
+
+
+# (B, L, chunk) of the bf16 tensor-core instance: chunks padded to 64, 128
+# and 256 rows, L = 1 and 97 (one chunk, padded), L not a multiple of the
+# chunk, and B·n past one pass of eight columns (with the chunk that each
+# diagonal adds loaded during the one before)
+TC_TOEPLITZ = [(B, L, chunk) for B in (1, 4) for L in (1, 97, 1000, 1024, 2048)
+               for chunk in (64, 128, 256)]
+
+
+@pytest.mark.parametrize("B,L,chunk", TC_TOEPLITZ)
+def test_toeplitz_tensor_core_instance_matches_plain(cuda, B, L, chunk):
+    """At a ragged channel group (D = 865), exact and banded to two chunk
+    diagonals, gated with skip and bare, within the kernel's bf16
+    tolerance; gated equals gate * ungated bit for bit."""
+    D = 865
+    u, h, skip, gate = _inputs(B, L, D, torch.bfloat16, cuda, seed=B + L + chunk)
+    rtol, atol = TOEPLITZ_TOLERANCE[torch.bfloat16]
+    for K in (None, 2):
+        for sk, g in ((skip, gate), (None, None)):
+            got = toeplitz_conv(u, h, sk, g, chunk=chunk, n_chunk_diags=K)
+            want = toeplitz_conv_plain(u, h, sk, g, chunk=chunk, n_chunk_diags=K)
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+        fused = toeplitz_conv(u, h, skip, gate, chunk=chunk, n_chunk_diags=K)
+        assert torch.equal(fused, gate * toeplitz_conv(u, h, skip, chunk=chunk, n_chunk_diags=K))
 
 
 def test_toeplitz_kernel_takes_views_counts_launches_and_refuses(cuda):
@@ -406,6 +432,25 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, g_dtype):
     assert not got.view(-1, shape[-1])[0].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 5, 864, 3072, 8192])
+def test_rmsnorm_row_instances_match_plain(cuda, dtype, D):
+    """Contiguous rows and rows of a wider tensor read through their stride
+    from elements 0 (16-byte loads where D allows) and 1 (element by
+    element), at the widths whose chunk counts are fixed at compile time;
+    a row of zeros gives zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    wide = torch.randn(4, 64, D + 136, generator=gen, device=cuda).to(dtype)
+    g = (0.5 * torch.randn(D, generator=gen, device=cuda))
+    rtol, atol = RMSNORM_TOL[dtype]
+    for x in (wide[..., :D].contiguous(), wide[..., :D], wide[..., 1:D + 1]):
+        x[0, 0] = 0
+        got = rmsnorm(x, g)
+        torch.testing.assert_close(got.float(), rmsnorm_plain(x.contiguous(), g).float(),
+                                   rtol=rtol, atol=atol)
+        assert not got[0, 0].any()
+
+
 def test_rmsnorm_kernel_takes_views_counts_launches_and_refuses(cuda):
     """Rows of a wider tensor are read in place through their row stride,
     with 128-bit loads where the rows start 16-byte aligned and one element
@@ -443,3 +488,19 @@ def test_no_model_path_launches_short_conv_or_rmsnorm(cuda):
                                 generator=torch.Generator(device=cuda).manual_seed(1))
         generate(params, cfg, prompts, scfg=ServeConfig(max_len=64), max_new_tokens=3)
     assert (short_conv_gate.launches, rmsnorm.launches) == before
+
+
+def test_generate_refuses_blockfft_overlap_past_the_kernel_range_before_any_launch(cuda):
+    """An 8193-token prompt on the two-level backend raises from lm.prefill
+    before the embedding: no kernel launches."""
+    cfg = get_config("hyena-153m").reduced()
+    params = lm.init_lm(cfg, seed=0, device=cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (1, 8193), device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(3))
+    counts = lambda: (twolevel_fft_conv.launches, toeplitz_conv.launches,
+                      flash_attention.launches, short_conv_gate.launches, rmsnorm.launches)
+    before = counts()
+    scfg = ServeConfig(max_len=8200, conv_backend="blockfft_overlap")
+    with pytest.raises(ValueError, match="L <= 8192 on CUDA, got 8193"):
+        generate(params, cfg, prompts, scfg=scfg, max_new_tokens=2)
+    assert counts() == before

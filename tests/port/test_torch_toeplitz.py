@@ -28,9 +28,10 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.toeplitz_conv import toeplitz_conv as jax_toeplitz
 from repro_torch.core.conv_api import get_conv_backend
 from repro_torch.kernels import ops
+from repro_torch.kernels import toeplitz_conv as TT
 from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
 
-from torch_port_util import TORCH_THREADS, free_jax_programs  # noqa: F401
+from torch_port_util import TORCH_THREADS, free_jax_programs, tf32  # noqa: F401
 
 jax_ref_jit = jax.jit(jax_ref.toeplitz_conv, static_argnames=("n_chunk_diags", "chunk"))
 
@@ -150,3 +151,103 @@ def test_wrapper_dispatch_and_refusals():
         ops.toeplitz_conv(u, h, n_chunk_diags=0)
     with pytest.raises(ValueError, match="h has shape"):
         ops.toeplitz_conv(u, h[:, :-1])
+
+
+def test_toeplitz_tolerance_states_the_tf32_bound():
+    """TOLERANCE's values, and the rounding its derivation rests on: TF32
+    by round-to-nearest (ties away) is off by at most 2^-11 of the value,
+    and bf16 values pass through it unchanged."""
+    assert TT.TOLERANCE == {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -6, 2.0 ** -10)}
+    r = torch.from_numpy(np.random.default_rng(1).standard_normal(10_000).astype(np.float32))
+    assert ((tf32(r) - r).abs() <= 2.0 ** -11 * r.abs()).all()
+    assert torch.equal(tf32(r.bfloat16().float()), r.bfloat16().float())
+
+
+@pytest.mark.parametrize("B,L,D,C,K", [(1, 1000, 64, 128, None), (1, 97, 16, 128, None),
+                                       (2, 300, 33, 128, 2), (1, 1000, 64, 256, None)])
+def test_tf32_rounding_model_holds_the_bf16_gate(B, L, D, C, K):
+    """The bf16 kernel's TF32 taps, modelled on the CPU (the plain chunked
+    sum with h rounded to TF32, u exact), stay inside the unchanged bf16
+    gate against the plain version (TOLERANCE), with at least a fourfold
+    margin on atol, gated with skip and bare."""
+    u, h, skip, gate = (torch.tensor(a) for a in _inputs(B, L, D, "bf16", seed=L + D))
+    u, gate = u.bfloat16(), gate.bfloat16()
+    rtol, atol = TT.TOLERANCE[torch.bfloat16]
+    for sk, g in ((skip, gate), (None, None)):
+        got = toeplitz_conv_plain(u, tf32(h), sk, g, chunk=C, n_chunk_diags=K).float()
+        want = toeplitz_conv_plain(u, h, sk, g, chunk=C, n_chunk_diags=K).float()
+        excess = ((got - want).abs() - rtol * want.abs()).max().item()
+        assert excess <= atol / 4, (sk is not None, excess)
+
+
+def _fragment_product(h, U, r, C):
+    """T_r @ U (U: CP x 8, one input chunk a column) as the tensor-core
+    kernel computes it: per warp strip, the tap window of diagonal r as
+    pairs (h[x - 1], h[x]) from tc_window_start, the A fragments read from
+    it by tc_fragment_index, the B fragments as rows 2t, 2t + 1 of each
+    k-tile, each m16n8k8 tile rebuilt from its 32 lanes' registers; on
+    r = 0 the tiles the kernel skips are left out."""
+    L = h.shape[0]
+    CP, MW, KT, strips = TT.tc_dims(C)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    Y = np.zeros((CP, U.shape[1]))
+    for strip in range(strips):
+        mi0 = strip * MW
+        x = TT.tc_window_start(r, C, mi0, KT) + np.arange(8 * (2 * (MW - 1) + KT - 1) + 22)
+        tap = lambda x: np.where((x >= 0) & (x < L), h[np.clip(x, 0, L - 1)], 0.0)
+        P = np.stack([tap(x - 1), tap(x)], axis=-1)
+        for mm in range(MW):
+            for ki in range(KT):
+                s = 2 * mm - ki
+                if r == 0 and 2 * mi0 + s < -1:
+                    continue
+                p0, p1 = TT.tc_fragment_index(s, lane, KT)
+                A = np.zeros((16, 8))
+                A[g, t], A[g + 8, t] = P[p0, 1], P[p1, 1]  # a0, a1
+                A[g, t + 4], A[g + 8, t + 4] = P[p0, 0], P[p1, 0]  # a2, a3
+                Bm = np.zeros((8, 8))
+                Bm[t, g] = U[8 * ki + 2 * t, g]  # b0
+                Bm[t + 4, g] = U[8 * ki + 2 * t + 1, g]  # b1
+                rows = slice(16 * (mi0 + mm), 16 * (mi0 + mm) + 16)
+                Y[rows] += A @ Bm
+    return Y
+
+
+@pytest.mark.parametrize("C", [128, 97, 256])
+@pytest.mark.parametrize("r", [0, 1, 3])
+def test_tensor_core_fragments_reproduce_the_toeplitz_product(C, r):
+    """The kernel's index rule, emulated lane by lane in numpy, gives
+    T_r @ U for the shifted u columns: output column i reads input chunk
+    i - r (zero where i < r), and T_r[a, b] = h[rC + a - b] is zero at
+    negative lags."""
+    rng = np.random.default_rng(C + r)
+    n = 8
+    L = n * C - 5
+    h = rng.standard_normal(L)
+    u = np.zeros(n * C)
+    u[:L] = rng.standard_normal(L)
+    CP = TT.tc_dims(C)[0]
+    U = np.zeros((CP, 8))
+    for i in range(r, 8):
+        U[:C, i] = u[(i - r) * C:(i - r + 1) * C]
+    lag = r * C + np.arange(C)[:, None] - np.arange(C)[None, :]
+    T = np.where((lag >= 0) & (lag < L), h[np.clip(lag, 0, L - 1)], 0.0)
+    got = _fragment_product(h, U, r, C)
+    np.testing.assert_allclose(got[:C], T @ U[:C], rtol=1e-12, atol=1e-12)
+
+
+def test_tensor_core_launch_shapes_fit_the_card():
+    """Every chunk size the tensor-core instance takes, at the engine's and
+    small widths, plans a block within 227 KB of shared memory and its 512
+    threads; at D = 864 seven channels a block (two warps each at C = 128)
+    fill 124 of 132 SMs."""
+    assert TT.tc_launch_shape(864, 128, 132) == (7, 448, TT.tc_smem_bytes(128, 7), 124)
+    for C in range(1, TT.MAX_CHUNK + 1):
+        CP, MW, KT, strips = TT.tc_dims(C)
+        assert C <= CP <= max(16, 2 * C) and MW * strips * 16 == CP and KT * 8 == CP
+        for D in (1, 5, 864, 865, 5000):
+            G, threads, smem, grid = TT.tc_launch_shape(D, C, 132)
+            assert 1 <= G and threads == 32 * G * strips <= 32 * TT.TC_MAX_WARPS
+            assert smem == TT.tc_smem_bytes(C, G) <= TT.SMEM_PER_BLOCK
+            assert grid * G >= D > (grid - 1) * G

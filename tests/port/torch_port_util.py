@@ -50,6 +50,15 @@ def jax_and_torch_model(arch: str, seed: int = 0):
     return jcfg, values, tcfg, from_jax_values(np_values, tcfg, device="cpu")
 
 
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero: what the kernels' cvt.rna.tf32.f32 does."""
+    if x.is_complex():
+        return torch.complex(tf32(x.real), tf32(x.imag))
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def t(a) -> torch.Tensor:
     """numpy / jax array -> CPU torch tensor (a copy)."""
     return torch.from_numpy(np.array(a, copy=True))
