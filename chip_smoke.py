@@ -10,8 +10,10 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
 1. Build every CUDA kernel of the served path from ``csrc/`` with ``nvcc``
    (sm_90a), timed; print ptxas's registers and spills of every kernel
    (raised if an instance of the flash kernel's bf16 path, of the
-   two-level conv's or the toeplitz conv's tensor-core path, or of
-   RMSNorm's row-tile kernel spills); print the card's name and
+   two-level conv's or the toeplitz conv's tensor-core path, of
+   RMSNorm's row-tile kernel or of the short conv's vector path spills;
+   the short conv's 136 instances one line each: vector, scalar and
+   general); print the card's name and
    power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
@@ -32,13 +34,22 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    chunks of 64 and 256, L = 1, 37, 97 and 1000 and a banded call); print
    each max error beside its tolerance and raise past it.  Float32 matmuls run in
    full fp32 (``torch.backends.cuda.matmul.allow_tf32 = False``).  The short conv
-   kernel at hyena-153m's projection (B=4, L=1024, (N+1)·D = 2592, K=3,
-   bf16, gated and ungated) and at K=1, K=4, K=8 with L < K−1, L=1, a
-   ragged D, fp32, a bf16 w and views of a wider projection; RMSNorm at
+   (``short_conv_agrees``: fp32 bit for bit, bf16 within one bf16 ulp; each
+   call must take the instance ``short_conv_plan`` names and count one
+   launch on it, printed beside its error) at hyena-153m's projection
+   (B=4, L=1024, (N+1)·D = 2592, K=3, bf16 and fp32, gated and ungated)
+   and at K=1, 4 and 8 (L < K−1), L=1, L shorter than a run and not a
+   multiple of it, a bf16 w and hyena-153m's split views of its projection
+   read in place (vector instance); the projection one element off 16
+   bytes, split views of a 2593-wide buffer one element off 16 bytes and
+   a ragged D, 33 and 2592 + 4 (scalar; 2592 + 4 in fp32 is whole
+   vectors); K = 9, 16 and 64, L < K−1, and the split views at K = 9
+   (general); RMSNorm at
    hyena-153m's (4, 1024, 864) and phi4-mini's (4, 1024, 3072) rows in
    bf16 and at one row, D=5, D=1, a 4-D input, D=8192, fp32, a bf16 g,
    rows read through a row stride and rows of zeros.  Each also refuses
-   what it does not take (fp16, a non-unit-stride last dim, K > 8).
+   what it does not take (fp16, a non-unit-stride last dim; for the short
+   conv also K = 0, a gate of another dtype and w on another device).
 3. The served path: hyena-153m at full width (18 layers, D=864, order 2,
    vocab 50257) with weights from a seed, ``generate()`` with
    ``ServeConfig(max_len=2048, conv_backend="blockfft_overlap")`` in bf16,
@@ -75,8 +86,9 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    hyena-153m's projection with the first layer's ``short_filter``, gated
    and ungated, and ``kernels.ops.rmsnorm`` on hyena-153m's and
    phi4-mini's rows, in bf16.  The counters must show exactly one launch
-   per call, and each output must be finite, of the input's shape and
-   dtype, and agree with the plain version.
+   per call (the short conv's both on its vector instance), and each output
+   must be finite, of the input's shape and dtype, and agree with the plain
+   version.
 3e. The two-level backend's range on the card: ``generate()`` of
    hyena-153m on ``blockfft_overlap`` with an 8193-token prompt must raise
    ``ValueError`` from ``lm.prefill``'s length check with every kernel
@@ -116,7 +128,14 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases:
    port never calls (``F.conv1d(groups=D)`` with causal padding, then the
    gate; ``F.rms_norm(weight=1+g)``) and the bound, the bytes the function
    must move (u, the gate and the output, or x and y, once; w or g once)
-   over 3.35 TB/s.
+   over 3.35 TB/s.  The short conv's vector kernel, gated and ungated, by
+   device time in turns with the scalar instance on the same shape one
+   element off 16 bytes, beside a copy yardstick of the same bytes that the
+   port never calls (``out.copy_(u)`` ungated, ``torch.add(u, gate,
+   out=out)`` gated) and each one's share of the bound, every output
+   written to memory the L2 no longer holds; the vector kernel and the
+   yardstick also with one output block rewritten at every call (as the
+   other kernels are timed).
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -161,11 +180,10 @@ TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -6, 2.0 ** -10)}  # (r
 # output's bf16 rounding: rtol 2^-6 and atol 2^-7, as derived beside
 # kernels/flash_attention.py::TOLERANCE (check_flash holds the two equal)
 FLASH_TOLERANCE = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -7)}
-# short conv against its plain version: the kernel's fp32 sums equal the
-# plain version's bit for bit (the same products, each rounded before its
-# add, in the same order), so bf16 outputs agree too; the bound stated is
-# one bf16 ulp (at most 2^-7 of the value)
-SHORT_CONV_TOLERANCE = {"float32": (1e-6, 1e-6), "bfloat16": (2.0 ** -7, 2.0 ** -10)}
+# short conv against its plain version (short_conv_agrees): the kernel's
+# fp32 sums equal the plain version's bit for bit (the same products, each
+# rounded before its add, in the same order), so fp32 outputs must be equal;
+# bf16 outputs round the same sums and are held within one bf16 ulp
 # RMSNorm against its plain version: the sum of squares is taken in another
 # order (fp32); bf16 outputs may land one bf16 ulp apart
 NORM_TOLERANCE = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -10)}
@@ -333,6 +351,33 @@ def rmsnorm_instances():
                                "label": f"row tiles {dtype} V={m.group(2)} NV={m.group(3)}"})
         elif "rmsnorm_kernel" in inst["function"]:
             out.append(inst | {"path": "general", "label": "general " + inst["function"][:40]})
+    return out
+
+
+def short_conv_instances():
+    """The short conv's instances from its ptxas report: the vector path's
+    (u and w dtypes, K, gated, U rows ahead), the scalar path's (rows a
+    thread) and the general one's (K at run time)."""
+    import re
+
+    def dtype(tag):  # "f", or bf16 by name or as S<n>_, a repeat of u's (builtins never are)
+        return "fp32" if tag == "f" else "bf16"
+
+    types = r"(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)"
+    out = []
+    for inst in ptxas_report("short_conv"):
+        f = inst["function"]
+        if m := re.search(r"short_conv_(vec|scalar|general)_kernelI" + types + r"(.*)", f):
+            path, u_t, w_t = m.group(1), dtype(m.group(2)), dtype(m.group(3))
+            if path == "general":
+                g = re.match(r"Lb([01])E", m.group(4))
+                label = f"general u {u_t} w {w_t} gated={g.group(1) == '1'}"
+            else:
+                g = re.match(r"Li(\d+)ELb([01])ELi(\d+)E", m.group(4))
+                last = "U" if path == "vec" else "R"
+                label = (f"{'vector' if path == 'vec' else path} u {u_t} w {w_t} K={g.group(1)} "
+                         f"gated={g.group(2) == '1'} {last}={g.group(3)}")
+            out.append(inst | {"path": "vector" if path == "vec" else path, "label": label})
     return out
 
 
@@ -737,55 +782,148 @@ def rmsnorm_bound_ms(rows, D, dtype, g_dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_short_conv(device) -> float:
-    """Phase 2, kernel 4; returns the max abs error at hyena-153m's
-    projection (B=4, L=1024, 2592 channels, K=3, bf16, gated)."""
+def bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits), floored at the smallest normal."""
     import torch
 
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def short_conv_agrees(got, want, label) -> float:
+    """The short conv against its plain version: fp32 bit for bit, bf16
+    within one bf16 ulp of the plain value (both round the same fp32 sums,
+    so they agree bit for bit there too); raised otherwise.  Returns the
+    max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise RuntimeError(f"short_conv_gate returned {got.dtype} {tuple(got.shape)} at {label}")
+    if not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"short_conv_gate output not finite at {label}")
+    equal = torch.equal(got, want)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ulps = (diff / bf16_ulp(want)).max().item() if got.dtype == torch.bfloat16 else None
+    log(f"  short_conv_gate {label}: max_abs_err={err:.3e}, bit for bit {equal}"
+        + ("" if ulps is None else f", at most {ulps:g} bf16 ulp (tolerance 1)"))
+    if got.dtype == torch.float32 and not equal:
+        raise RuntimeError(f"short_conv_gate's fp32 output differs from its plain version at {label}")
+    if ulps is not None and ulps > 1:
+        raise RuntimeError(f"short_conv_gate is more than one bf16 ulp off at {label}")
+    return err
+
+
+def off16(shape, dtype, seed, device):
+    """A (B, L, D) tensor of normal values whose data starts one element past
+    16 bytes: a buffer one element longer, viewed from element 1."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = math.prod(shape)
+    return torch.randn(n + 1, generator=g, device=device).to(dtype)[1:].view(shape)
+
+
+def check_short_conv(device) -> float:
+    """Phase 2, kernel 4; returns the max abs error at hyena-153m's
+    projection (B=4, L=1024, 2592 channels, K=3, bf16, gated).  Every call
+    must take the instance ``short_conv_plan`` names, and count one launch
+    on it."""
+    import torch
+
+    from repro_torch.kernels import short_conv as sc
     from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [
-        # (B, L, D, K, dtype, gated, w dtype)
-        (BATCH, PROMPT_LEN, 2592, 3, bf16, True, f32),  # hyena-153m's projection
-        (BATCH, PROMPT_LEN, 2592, 3, bf16, False, f32),
-        (BATCH, PROMPT_LEN, 2592, 3, f32, True, f32),
-        (2, 300, 2592, 1, bf16, True, f32),  # K = 1
-        (2, 300, 2592, 4, f32, False, f32),  # K = 4
-        (2, 300, 2592, 4, bf16, True, f32),
-        (2, 5, 64, 8, bf16, True, bf16),  # K = 8, L < K - 1, bf16 w
-        (3, 1, 2592, 3, bf16, True, f32),  # L = 1
-        (2, 100, 33, 3, f32, True, f32),  # ragged D
-        (2, 100, 33, 3, bf16, False, bf16),
-    ]
+
+    def run(u, w, gate, label, want_instance):
+        plan = sc.short_conv_plan(u, w, gate)
+        if plan != want_instance:
+            raise RuntimeError(f"short_conv_plan gives {plan}, not {want_instance}, at {label}")
+        before = sc.launch_counts()
+        got = short_conv_gate(u, w, gate)
+        after = sc.launch_counts()
+        moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if moved != {"launches": 1, plan: 1}:
+            raise RuntimeError(f"short_conv_gate counted {moved} at {label}")
+        want = short_conv_gate_plain(u.contiguous(), w.contiguous(),
+                                     None if gate is None else gate.contiguous())
+        return short_conv_agrees(got, want, f"{label} [{plan} instance]")
+
     errs = []
-    for i, (B, L, D, K, dtype, gated, w_dtype) in enumerate(cases):
+    cases = [
+        # (B, L, D, K, dtype, gated, w dtype, instance, note)
+        (BATCH, PROMPT_LEN, 2592, 3, bf16, True, f32, "vector", "hyena-153m's projection"),
+        (BATCH, PROMPT_LEN, 2592, 3, bf16, False, f32, "vector", "hyena-153m's projection"),
+        (BATCH, PROMPT_LEN, 2592, 3, f32, True, f32, "vector", ""),
+        (BATCH, PROMPT_LEN, 2592, 3, f32, False, bf16, "vector", "bf16 w"),
+        (2, 300, 2592, 1, bf16, True, f32, "vector", "K = 1"),
+        (2, 300, 2592, 4, f32, False, f32, "vector", "K = 4"),
+        (2, 300, 2592, 4, bf16, True, f32, "vector", "K = 4"),
+        (2, 5, 64, 8, bf16, True, bf16, "vector", "K = 8, L < K - 1"),
+        (2, 300, 2592, 8, f32, True, f32, "vector", "K = 8"),
+        (3, 1, 2592, 3, bf16, True, f32, "vector", "L = 1"),
+        (2, 3, 2592, 3, f32, True, f32, "vector", "L shorter than a run"),
+        (2, 1000, 2592, 3, bf16, True, f32, "vector", "L not a multiple of the run"),
+        (2, 37, 864, 2, f32, False, f32, "vector", "L not a multiple of the run"),
+        (2, 100, 33, 3, f32, True, f32, "scalar", "ragged D"),
+        (2, 100, 33, 3, bf16, False, bf16, "scalar", "ragged D"),
+        (2, 100, 2596, 3, bf16, True, f32, "scalar", "D = 2592 + 4, ragged in bf16"),
+        (2, 100, 2596, 3, f32, True, f32, "vector", "D = 2592 + 4, whole vectors in fp32"),
+        (2, 5, 64, 9, bf16, True, f32, "general", "K = 9, L < K - 1"),
+        (2, 10, 72, 16, f32, False, f32, "general", "K = 16, L < K - 1"),
+        (2, 40, 40, 64, bf16, True, bf16, "general", "K = 64, L < K - 1"),
+        (2, 300, 2592, 16, f32, True, f32, "general", "K = 16"),
+    ]
+    for i, (B, L, D, K, dtype, gated, w_dtype, instance, note) in enumerate(cases):
         u, w, gate = short_conv_inputs(B, L, D, K, dtype, 400 + i, device, w_dtype)
-        gate = gate if gated else None
-        errs.append(compare(
-            "short_conv_gate", short_conv_gate(u, w, gate), short_conv_gate_plain(u, w, gate),
-            dtype, f"B={B} L={L} D={D} K={K} {str(dtype)[6:]} gate={gated} "
-            f"w={str(w_dtype)[6:]}", SHORT_CONV_TOLERANCE,
-        ))
-    # views of a wider projection and a transposed w, read in place
+        label = f"B={B} L={L} D={D} K={K} {str(dtype)[6:]} gate={gated} w={str(w_dtype)[6:]}"
+        errs.append(run(u, w, gate if gated else None, f"{label} ({note})" if note else label,
+                        instance))
+    # the same projection one element off 16 bytes: the scalar instance
+    for dtype in (bf16, f32):
+        shape = (BATCH, PROMPT_LEN, 2592)
+        u, gate = off16(shape, dtype, 31, device), off16(shape, dtype, 32, device)
+        w = short_conv_inputs(1, 1, 2592, 3, dtype, 33, device)[1]
+        for g in (gate, None):
+            run(u, w, g, f"B=4 L=1024 D=2592 K=3 {str(dtype)[6:]} gate={g is not None}, "
+                f"one element off 16 bytes", "scalar")
+    # hyena-153m's split views of its projection, read in place, and w transposed
     g = torch.Generator(device=device).manual_seed(11)
     z = torch.randn(BATCH, PROMPT_LEN, 3 * 864, generator=g, device=device).bfloat16()
-    u, gate = z[..., :864], z[..., 864:1728]
     w = torch.randn(3, 864, generator=g, device=device).t()
-    compare("short_conv_gate", short_conv_gate(u, w, gate),
-            short_conv_gate_plain(u.contiguous(), w.contiguous(), gate.contiguous()),
-            torch.bfloat16, "B=4 L=1024 D=864 bfloat16 views of a projection, w transposed",
-            SHORT_CONV_TOLERANCE)
-    before = short_conv_gate.launches
-    for bad_u, bad_w in ((u.half(), w), (u.transpose(1, 2).contiguous().transpose(1, 2), w),
-                         (u, torch.randn(864, 9, device=device))):
+    for u, gate in ((z[..., :864], z[..., 864:1728]), (z[..., 1728:], z[..., :864])):
+        run(u, w, gate, f"B=4 L=1024 D=864 bf16 views of the projection at channels "
+            f"{u.storage_offset()} and {gate.storage_offset()}, w transposed", "vector")
+    # split views one element off 16 bytes (scalar) and at K = 9 (general),
+    # each instance stepping the views' own strides
+    for width, (u0, u1), (g0, g1), K, instance in ((2593, (1, 865), (865, 1729), 3, "scalar"),
+                                                   (2592, (0, 864), (864, 1728), 9, "general")):
+        for dtype in (bf16, f32):
+            z = torch.randn(BATCH, PROMPT_LEN, width, generator=g, device=device).to(dtype)
+            w = torch.randn(K, 864, generator=g, device=device).t()
+            for gate in (z[..., g0:g1], None):
+                run(z[..., u0:u1], w, gate, f"B=4 L=1024 D=864 K={K} {str(dtype)[6:]} "
+                    f"gate={gate is not None}, views of a {width}-wide buffer at channels "
+                    f"{u0} and {g0}", instance)
+    u, w, gate = short_conv_inputs(BATCH, PROMPT_LEN, 2592, 3, bf16, 34, device)
+    before = sc.launch_counts()
+    w = torch.randn(864, 3, device=device)
+    for bad_u, bad_w, bad_g in (
+        (u[..., :864].half(), w, None),  # fp16
+        (u[..., :864].transpose(1, 2).contiguous().transpose(1, 2), w, None),  # channel stride
+        (u[..., :864], torch.randn(864, 0, device=device), None),  # K = 0
+        (u[..., :864], w, gate[..., :864].float()),  # a gate of another dtype
+        (u[..., :864], w.cpu(), None),  # w on another device
+    ):
         try:
-            short_conv_gate(bad_u, bad_w)
+            short_conv_gate(bad_u, bad_w, bad_g)
         except ValueError as e:
             log(f"  refused: {e}")
         else:
             raise RuntimeError("short_conv_gate accepted what it does not take")
-    if short_conv_gate.launches != before:
+    if sc.launch_counts() != before:
         raise RuntimeError("a refused short_conv_gate call counted a launch")
     return errs[0]
 
@@ -870,29 +1008,56 @@ def cold_ms(fn, arg_sets, iters: int = 24, warmup: int = 3) -> float:
     return cuda_ms(step, iters=iters, warmup=warmup)
 
 
-def kernel_device_ms(fn, arg_sets, kernel_name, iters: int = 24):
+def mean_of(*times):
+    """The mean of device times, None if one was not measured."""
+    return None if None in times else sum(times) / len(times)
+
+
+def pct_of(bound_ms, ms) -> str:
+    """``bound_ms`` as a share of ``ms``, or "not measured"."""
+    return "not measured" if ms is None else f"{100 * bound_ms / ms:.1f} %"
+
+
+def kernel_device_ms(fn, arg_sets, kernel_name, iters: int = 24, *, cold_outputs=False,
+                     tries: int = 1):
     """Device time per launch of the kernels whose name holds
     ``kernel_name``, traced by torch.profiler over ``iters`` calls of
     ``fn`` cycling over ``arg_sets``; with ``kernel_name`` None, the device
     time of every kernel a call runs, per call.  None where the trace holds
-    no device time."""
+    no device time.  With ``cold_outputs`` the last len(arg_sets) outputs
+    are held, so that each call writes to memory the L2 no longer holds
+    (one block rewritten at every call lets its dirty lines be overwritten
+    in L2 before they reach device memory), and a trace counts only if it
+    holds one event of the kernel per call (one fewer or two: the profiler
+    drops an edge launch in most traces), else it is taken again, ``tries``
+    times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn(*arg_sets[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
+    held = [None] * len(arg_sets)
+    for _ in range(tries):
+        fn(*arg_sets[0])
         torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and (kernel_name is None or kernel_name in e.key):
-            us += (getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0))
-            n += e.count
-    if kernel_name is None:
-        n = iters if n else 0
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for i in range(iters):
+                out = fn(*arg_sets[i % len(arg_sets)])
+                if cold_outputs:
+                    held[i % len(arg_sets)] = out
+                del out
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA") and (kernel_name is None
+                                                        or kernel_name in e.key):
+                us += (getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0))
+                n += e.count
+        if kernel_name is None:
+            n = iters if n else 0
+        if not cold_outputs or iters - 2 <= n <= iters:
+            break
+        log(f"  ({kernel_name}: {n} events traced for {iters} calls, traced again)")
+        n = 0
     return us / n / 1e3 if n and us else None
 
 
@@ -977,6 +1142,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels import short_conv
     from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
     from repro_torch.kernels.toeplitz_conv import chunking, toeplitz_conv, toeplitz_conv_plain
     from repro_torch.kernels.toeplitz_conv import tc_launch_shape
@@ -1001,6 +1167,8 @@ def main() -> int:
     libs = build.build_all()
     log(f"  built {sorted(libs)} for sm_90a in {time.perf_counter() - t0:.1f} s")
     for name in libs:
+        if name == "short_conv":  # 136 instances: one line each below
+            continue
         ptxas = [ln for ln in (build.BUILD_DIR / f"{name}.log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
         for ln in ptxas:
@@ -1017,10 +1185,13 @@ def main() -> int:
         raise RuntimeError(f"the 16 tensor-core two-level instances must build without "
                            f"spills: {spills}")
     tt_inst, rn_inst = toeplitz_instances(), rmsnorm_instances()
+    sc_inst = short_conv_instances()
     log_instances("toeplitz", tt_inst)
     log_instances("rmsnorm", rn_inst)
+    log_instances("short_conv", sc_inst)
     for kernel, insts, path, want in (("toeplitz", tt_inst, "tc", 5),
-                                      ("rmsnorm", rn_inst, "rows", 24)):
+                                      ("rmsnorm", rn_inst, "rows", 24),
+                                      ("short_conv", sc_inst, "vector", 64)):
         mine = [i for i in insts if i["path"] == path]
         spills = [i["label"] for i in mine if i["spill_stores"] or i["spill_loads"]]
         if len(mine) != want or spills:
@@ -1039,7 +1210,8 @@ def main() -> int:
 
     def zero_counts():
         twolevel_fft_conv.launches = toeplitz_conv.launches = flash_attention.launches = 0
-        short_conv_gate.launches = rmsnorm.launches = 0
+        rmsnorm.launches = 0
+        short_conv.reset_launch_counts()
 
     # ---- phase 3: the served path
     log(f"phase 3: {ARCH} at full width, generate() with blockfft_overlap, bf16")
@@ -1233,23 +1405,25 @@ def main() -> int:
         sc_out = [ops.short_conv_gate(u_sc, w_sc, gate_sc), ops.short_conv_gate(u_sc, w_sc)]
         norm_out = [ops.rmsnorm(x, g) for x, g in norm_in]
     torch.cuda.synchronize()
-    sc_launches, norm_launches = short_conv_gate.launches, rmsnorm.launches
+    sc_counts, norm_launches = short_conv.launch_counts(), rmsnorm.launches
+    sc_launches = sc_counts["launches"]
     other = twolevel_fft_conv.launches + toeplitz_conv.launches + flash_attention.launches
     log(f"  2 short conv calls (B={BATCH}, L={PROMPT_LEN}, {sc_D} channels, K={sc_K}, gated "
-        f"and ungated): short_conv_gate launches {sc_launches}; 2 rmsnorm calls (D="
+        f"and ungated): short_conv_gate launches {sc_counts}; 2 rmsnorm calls (D="
         f"{cfg.d_model}, {acfg.d_model}): rmsnorm launches {norm_launches}; other kernels' "
         f"launches {other}")
-    if (sc_launches, norm_launches, other) != (2, 2, 0):
-        raise RuntimeError("kernels.ops did not launch each kernel once per call")
-    for name, out, want in (
-        ("short_conv_gate", sc_out[0], short_conv_gate_plain(u_sc, w_sc, gate_sc)),
-        ("short_conv_gate", sc_out[1], short_conv_gate_plain(u_sc, w_sc)),
-        *(("rmsnorm", o, rmsnorm_plain(x, g)) for o, (x, g) in zip(norm_out, norm_in)),
-    ):
-        if out.shape != want.shape or out.dtype != torch.bfloat16:
-            raise RuntimeError(f"{name} returned {out.dtype} {tuple(out.shape)}")
-        compare(name, out, want, torch.bfloat16, f"ops call {tuple(out.shape)}",
-                SHORT_CONV_TOLERANCE if name == "short_conv_gate" else NORM_TOLERANCE)
+    if (sc_launches, sc_counts["vector"], norm_launches, other) != (2, 2, 2, 0):
+        raise RuntimeError("kernels.ops did not launch each kernel once per call (the short "
+                           "conv on its vector instance)")
+    short_conv_agrees(sc_out[0], short_conv_gate_plain(u_sc, w_sc, gate_sc),
+                      f"ops call {tuple(u_sc.shape)} gated")
+    short_conv_agrees(sc_out[1], short_conv_gate_plain(u_sc, w_sc),
+                      f"ops call {tuple(u_sc.shape)} ungated")
+    for out, (x, g) in zip(norm_out, norm_in):
+        if out.shape != x.shape or out.dtype != torch.bfloat16:
+            raise RuntimeError(f"rmsnorm returned {out.dtype} {tuple(out.shape)}")
+        compare("rmsnorm", out, rmsnorm_plain(x, g), torch.bfloat16,
+                f"ops call {tuple(out.shape)}", NORM_TOLERANCE)
     del sc_out, norm_out
 
     # ---- phase 3e: the two-level backend refuses past its kernel's range
@@ -1453,38 +1627,80 @@ def main() -> int:
         f"difference from the plain version {d_lib:.3e}); plain {fp_ms:.4f} ms")
     log_flash_instances(flash_inst)
 
-    # the short conv and RMSNorm kernels at phase 3d's shapes, on input sets
-    # that together exceed the L2 cache
-    sc_sets = [short_conv_inputs(BATCH, PROMPT_LEN, sc_D, sc_K, torch.bfloat16, 20 + i, device)
+    # the short conv at phase 3d's shape, on input sets that together exceed
+    # the L2 cache: the vector kernel's device time in turns with the scalar
+    # instance's on the same shape one element off 16 bytes, beside a copy
+    # yardstick of the same bytes (never called by the port), the wrapper,
+    # the plain version, F.conv1d and the bound
+    bf16 = torch.bfloat16
+    sc_shape = (BATCH, PROMPT_LEN, sc_D)
+    sc_sets = [short_conv_inputs(BATCH, PROMPT_LEN, sc_D, sc_K, bf16, 20 + i, device)
                for i in range(4)]
     sc_sets = [(u, w_sc, gate) for u, _, gate in sc_sets]
+    sc_off = [(off16(sc_shape, bf16, 40 + i, device), w_sc, off16(sc_shape, bf16, 50 + i, device))
+              for i in range(4)]
+    sc_outs = [torch.empty(sc_shape, dtype=bf16, device=device) for _ in range(4)]
+    sc_geometry = {gated: short_conv.vector_geometry(
+        BATCH, PROMPT_LEN, sc_D // short_conv.vector_width(bf16), gated=gated)
+        for gated in (True, False)}
     w_flip = w_sc.flip(-1)[:, None, :].bfloat16()
+    yardsticks = {True: ("torch.add(u, gate, out=out)", lambda u, g, o: torch.add(u, g, out=o)),
+                  False: ("out.copy_(u)", lambda u, g, o: o.copy_(u))}
     sc_times = {}
+    cold = {"cold_outputs": True, "tries": 3}  # every output written to memory off the L2
+    saved = short_conv.launch_counts()
     with torch.no_grad():
         for gated in (True, False):
             sets = sc_sets if gated else [(u, w, None) for u, w, _ in sc_sets]
-            saved = short_conv_gate.launches
+            offs = sc_off if gated else [(u, w, None) for u, w, _ in sc_off]
+            plans = ([short_conv.short_conv_plan(*a) for a in sets],
+                     [short_conv.short_conv_plan(*a) for a in offs])
+            if set(plans[0]) != {"vector"} or set(plans[1]) != {"scalar"}:
+                raise RuntimeError(f"short conv timing sets take the instances {plans}")
             ms = cold_ms(ops.short_conv_gate, sets)
-            dev_ms = kernel_device_ms(ops.short_conv_gate, sets, "short_conv_kernel")
-            short_conv_gate.launches = saved  # timing launches are not the path's
+            # in turns: vector, scalar, scalar, vector
+            turns = [kernel_device_ms(ops.short_conv_gate, st, name, **cold)
+                     for st, name in ((sets, "short_conv_vec"), (offs, "short_conv_scalar"),
+                                      (offs, "short_conv_scalar"), (sets, "short_conv_vec"))]
+            yard_name, yard = yardsticks[gated]
+            yard_sets = [(u, g, o) for (u, _, g), o in zip(sc_sets, sc_outs)]
             lib_sets = [(u, w_flip, g) for u, _, g in sets]
             sc_times[gated] = {
-                "ms": ms, "kernel_ms": dev_ms,
+                "ms": ms, "turns": turns,
+                "kernel_ms": mean_of(turns[0], turns[3]),
+                "scalar_kernel_ms": mean_of(turns[1], turns[2]),
+                "yardstick": yard_name,
+                "yardstick_ms": kernel_device_ms(yard, yard_sets, None, **cold),
+                # one output block rewritten at every call, as the other kernels
+                "kernel_ms_in_place": kernel_device_ms(ops.short_conv_gate, sets,
+                                                       "short_conv_vec"),
+                "yardstick_ms_in_place": kernel_device_ms(
+                    yard, [(u, g, sc_outs[0]) for u, _, g in sc_sets], None),
                 "plain_ms": cold_ms(short_conv_gate_plain, sets),
                 "library_ms": cold_ms(conv1d_short_conv, lib_sets),
-                "bound": short_conv_bound_ms(BATCH, PROMPT_LEN, sc_D, sc_K, torch.bfloat16,
-                                             gated=gated),
+                "bound": short_conv_bound_ms(BATCH, PROMPT_LEN, sc_D, sc_K, bf16, gated=gated),
             }
         u, _, gate = sc_sets[0]
         d_lib = (conv1d_short_conv(u, w_flip, gate).float()
                  - short_conv_gate_plain(u, w_sc, gate).float()).abs().max().item()
+    short_conv.reset_launch_counts(saved)  # timing launches are not the path's
+    del sc_sets, sc_off, sc_outs
     for gated, t in sc_times.items():
         b_ms, b_by = t["bound"]
+        kd, sd, yd = t["kernel_ms"], t["scalar_kernel_ms"], t["yardstick_ms"]
+        tr = ", ".join(dev(x) for x in t["turns"])
         log(f"  short_conv_gate (B={BATCH}, L={PROMPT_LEN}, {sc_D} channels, K={sc_K}, bf16, "
-            f"gate={gated}): {t['ms']:.4f} ms/call (the kernel's device time "
-            f"{dev(t['kernel_ms'])}), bound "
-            f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / t['ms']:.2f} % of it); plain "
-            f"{t['plain_ms']:.4f} ms; F.conv1d(groups=D) + gate {t['library_ms']:.4f} ms")
+            f"gate={gated}), device time in turns (vector, scalar, scalar, vector: {tr}): "
+            f"vector instance (R={sc_geometry[gated][0]}, U={short_conv.AHEAD}, "
+            f"{sc_geometry[gated][2]} threads) "
+            f"{dev(kd)}, {pct_of(b_ms, kd)} of the bound and {pct_of(yd, kd)} of the "
+            f"yardstick's rate; scalar instance (one element off 16 bytes) {dev(sd)}, "
+            f"{pct_of(b_ms, sd)} of the bound; yardstick {t['yardstick']} {dev(yd)}, "
+            f"{pct_of(b_ms, yd)} of the bound; bound {b_ms:.4f} ms by {b_by}; wrapper "
+            f"{t['ms']:.4f} ms/call; plain {t['plain_ms']:.4f} ms; F.conv1d(groups=D) + gate "
+            f"{t['library_ms']:.4f} ms; with one output block rewritten at every call (L2 "
+            f"absorbs part of the writes) the vector instance {dev(t['kernel_ms_in_place'])} and "
+            f"the yardstick {dev(t['yardstick_ms_in_place'])}")
     log(f"  F.conv1d yardstick's max abs difference from the plain version (bf16, gated) "
         f"{d_lib:.3e}")
 
@@ -1577,12 +1793,18 @@ def main() -> int:
         "launches": sc_launches,
         "max_abs_err": short_conv_err,
         "ms": sc_times[True]["ms"],  # the wrapper, gated, on cold inputs
+        "instance": "vector",  # the one phase 3d's calls took
         "kernel_ms": sc_times[True]["kernel_ms"],  # device time by torch.profiler
+        "scalar_kernel_ms": sc_times[True]["scalar_kernel_ms"],  # off 16 bytes, in turns
+        "yardstick": sc_times[True]["yardstick"],
+        "yardstick_ms": sc_times[True]["yardstick_ms"],  # its device time
+        "kernel_ms_in_place": sc_times[True]["kernel_ms_in_place"],  # output rewritten in place
+        "yardstick_ms_in_place": sc_times[True]["yardstick_ms_in_place"],
         "plain_ms": sc_times[True]["plain_ms"],
         "bound_ms": sc_times[True]["bound"][0],
         "bound_by": sc_times[True]["bound"][1],
         "library_ms": sc_times[True]["library_ms"],
-        "ungated": {k: v for k, v in sc_times[False].items() if k != "bound"}
+        "ungated": {k: v for k, v in sc_times[False].items() if k not in ("bound", "turns")}
         | {"bound_ms": sc_times[False]["bound"][0]},
     }, {
         "name": "rmsnorm",

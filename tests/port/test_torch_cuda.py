@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import TOLERANCE as FLASH_TOLERANCE
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention import rows_aligned16
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels import short_conv
 from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
 from repro_torch.kernels.toeplitz_conv import TOLERANCE as TOEPLITZ_TOLERANCE
 from repro_torch.kernels.toeplitz_conv import toeplitz_conv, toeplitz_conv_plain
@@ -344,17 +345,36 @@ def test_generate_on_cuda_launches_flash_once_per_layer(cuda, monkeypatch):
     assert torch.equal(got, want)
 
 
-# (B, L, D, K, w dtype): hyena-153m's projection ((N+1)·D = 2592 channels,
-# K = 3), K = 1, K = 4, K = 8 with L < K − 1, L = 1, a ragged D, a bf16 w
+# (B, L, D, K, w dtype, (fp32 instance, bf16 instance)): hyena-153m's
+# projection ((N+1)·D = 2592 channels, K = 3), K = 1, 4 and 8 (with
+# L < K − 1), L = 1, L shorter than a run (runs are at least AHEAD = 4
+# rows) and L not a multiple of it, a ragged D (33; 2592 + 4, whole fp32
+# vectors but not whole bf16 ones), and K = 9, 16 and 64 with L < K − 1
+VEC, SCALAR, GENERAL = ("vector",) * 2, ("scalar",) * 2, ("general",) * 2
 SHORT_CONV_SHAPES = [
-    (4, 1024, 2592, 3, torch.float32), (2, 300, 2592, 1, torch.float32),
-    (2, 300, 2592, 4, torch.float32), (2, 5, 64, 8, torch.bfloat16),
-    (3, 1, 2592, 3, torch.float32), (2, 100, 33, 3, torch.bfloat16),
+    (4, 1024, 2592, 3, torch.float32, VEC), (2, 300, 2592, 1, torch.float32, VEC),
+    (2, 300, 2592, 4, torch.float32, VEC), (2, 5, 64, 8, torch.bfloat16, VEC),
+    (3, 1, 2592, 3, torch.float32, VEC), (2, 3, 2592, 3, torch.float32, VEC),
+    (2, 1001, 864, 3, torch.bfloat16, VEC), (2, 100, 33, 3, torch.bfloat16, SCALAR),
+    (2, 100, 2596, 3, torch.float32, ("vector", "scalar")),
+    (2, 5, 64, 9, torch.float32, GENERAL), (2, 10, 72, 16, torch.bfloat16, GENERAL),
+    (2, 40, 40, 64, torch.float32, GENERAL),
 ]
-# (rtol, atol): the kernel's fp32 sums equal the plain version's bit for
-# bit (the same products, rounded before each add, in the same order), so
-# the bf16 downcast agrees too; the bound is one bf16 ulp
-SHORT_CONV_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2.0 ** -7, 2.0 ** -10)}
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits), floored at the smallest normal."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _assert_short_conv_agrees(got, want):
+    """fp32 bit for bit (the same products, each rounded before its add, in
+    the same order); bf16 within one bf16 ulp (both round the same sums)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        assert ((got.float() - want.float()).abs() <= _bf16_ulp(want)).all()
 
 
 def _short_conv_inputs(B, L, D, K, dtype, w_dtype, device, seed=0):
@@ -365,41 +385,106 @@ def _short_conv_inputs(B, L, D, K, dtype, w_dtype, device, seed=0):
     return u, w, gate
 
 
+def _short_conv_counted(u, w, gate):
+    """The kernel's output and the one per-instance counter it moved."""
+    before = short_conv.launch_counts()
+    got = short_conv_gate(u, w, gate)
+    after = short_conv.launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert len(moved) == 2 and moved["launches"] == 1, moved
+    return got, next(k for k in moved if k != "launches")
+
+
+def _off16(shape, dtype, device, seed):
+    """A (B, L, D) tensor whose data starts one element past 16 bytes."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = shape[0] * shape[1] * shape[2]
+    return torch.randn(n + 1, generator=g, device=device).to(dtype)[1:].view(shape)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,L,D,K,w_dtype", SHORT_CONV_SHAPES)
-def test_short_conv_kernel_matches_plain(cuda, dtype, B, L, D, K, w_dtype):
+@pytest.mark.parametrize("B,L,D,K,w_dtype,instances", SHORT_CONV_SHAPES)
+def test_short_conv_kernel_matches_plain(cuda, dtype, B, L, D, K, w_dtype, instances):
     u, w, gate = _short_conv_inputs(B, L, D, K, dtype, w_dtype, cuda, seed=L + D + K)
-    rtol, atol = SHORT_CONV_TOL[dtype]
+    want_instance = instances[dtype == torch.bfloat16]
     for g in (gate, None):
-        got = short_conv_gate(u, w, g)
-        torch.testing.assert_close(got.float(), short_conv_gate_plain(u, w, g).float(),
-                                   rtol=rtol, atol=atol)
-        assert got.dtype == dtype and got.shape == u.shape
+        got, took = _short_conv_counted(u, w, g)
+        assert took == want_instance == short_conv.short_conv_plan(u, w, g)
+        _assert_short_conv_agrees(got, short_conv_gate_plain(u, w, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_short_conv_projection_off_16_bytes_takes_the_scalar_instance(cuda, dtype):
+    """hyena-153m's projection from a buffer one element off 16 bytes: the
+    scalar instance, equal to the plain version as the vector one is on the
+    aligned copy."""
+    shape = (4, 1024, 2592)
+    u, gate = _off16(shape, dtype, cuda, 1), _off16(shape, dtype, cuda, 2)
+    w = torch.randn(2592, 3, device=cuda)
+    for g in (gate, None):
+        got, took = _short_conv_counted(u, w, g)
+        assert took == "scalar"
+        want = short_conv_gate_plain(u, w, g)
+        _assert_short_conv_agrees(got, want)
+        aligned = short_conv_gate(u.clone(), w, None if g is None else g.clone())
+        assert torch.equal(aligned, got)
+
+
+# (case, buffer width, u's channels, the gate's channels, K, instance):
+# split views of a wider projection, read in place by every instance
+SPLIT_VIEW_CASES = [
+    ("40-channel views", 120, (0, 40), (40, 80), 3, "vector"),
+    ("views one element off 16 bytes", 2593, (1, 865), (865, 1729), 3, "scalar"),
+    ("views of the projection at K = 9", 2592, (0, 864), (864, 1728), 9, "general"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,width,u_ch,g_ch,K,instance", SPLIT_VIEW_CASES,
+                         ids=[c[0] for c in SPLIT_VIEW_CASES])
+def test_short_conv_kernel_reads_split_views_in_place(cuda, dtype, case, width, u_ch, g_ch, K,
+                                                      instance):
+    """Each instance steps a view's own batch and row strides: split views
+    of one buffer equal the plain version on their contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(width + K)
+    z = torch.randn(2, 300, width, generator=g, device=cuda).to(dtype)
+    u, gate = z[..., u_ch[0]:u_ch[1]], z[..., g_ch[0]:g_ch[1]]
+    w = torch.randn(K, u.shape[2], generator=g, device=cuda).t()
+    for gt in (gate, None):
+        got, took = _short_conv_counted(u, w, gt)
+        assert took == instance
+        want = short_conv_gate_plain(u.contiguous(), w.contiguous(),
+                                     None if gt is None else gt.contiguous())
+        _assert_short_conv_agrees(got, want)
 
 
 def test_short_conv_kernel_takes_views_counts_launches_and_refuses(cuda):
-    """Views of a wider projection and a transposed w are read in place; a
-    call the kernel does not take raises before anything runs."""
-    B, L, D, K = 2, 300, 40, 3
+    """hyena-153m's split views of its projection and a transposed w are
+    read in place by the vector instance; a call the kernel does not take
+    raises before anything runs."""
+    B, L, D, K = 2, 300, 864, 3
     z = torch.randn(B, L, 3 * D, device=cuda).bfloat16()
     u, gate = z[..., :D], z[..., D:2 * D]
     w = torch.randn(K, D, device=cuda).t()
-    before = short_conv_gate.launches
+    before = short_conv.launch_counts()
     got = ops.short_conv_gate(u, w, gate)
-    assert short_conv_gate.launches == before + 1
+    after = short_conv.launch_counts()
+    assert (after["launches"], after["vector"]) == (before["launches"] + 1, before["vector"] + 1)
     want = short_conv_gate_plain(u.contiguous(), w.contiguous(), gate.contiguous())
-    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=2.0 ** -10)
+    _assert_short_conv_agrees(got, want)
     with pytest.raises(ValueError, match="fp32 or bf16 u"):
         ops.short_conv_gate(u.half(), w)
     with pytest.raises(ValueError, match="fp32 or bf16 w"):
         ops.short_conv_gate(u, w.half())
     with pytest.raises(ValueError, match="last dim"):
         ops.short_conv_gate(u.transpose(1, 2).contiguous().transpose(1, 2), w)
-    with pytest.raises(ValueError, match="K <= 8"):
-        ops.short_conv_gate(u, torch.randn(D, 9, device=cuda))
+    with pytest.raises(ValueError, match="K >= 1"):
+        ops.short_conv_gate(u, torch.randn(D, 0, device=cuda))
+    with pytest.raises(ValueError, match="w is on"):
+        ops.short_conv_gate(u, w.cpu())
     with pytest.raises(ValueError, match="gate must be"):
         ops.short_conv_gate(u, w, gate.float())
-    assert short_conv_gate.launches == before + 1
+    assert short_conv.launch_counts() == after
 
 
 # (shape, x dtype, g dtype): hyena-153m's and phi4-mini's rows, one row,

@@ -27,6 +27,7 @@ import torch
 from repro.kernels import ref as jax_ref
 from repro.kernels.short_conv import short_conv_gate as jax_short_conv
 from repro_torch.kernels import ops
+from repro_torch.kernels import short_conv as sc
 from repro_torch.kernels.short_conv import short_conv_gate, short_conv_gate_plain
 
 from torch_port_util import free_jax_programs  # noqa: F401
@@ -50,6 +51,7 @@ REF_CASES = [
     (2, 3, 8, 8, "fp32", False),  # L < K − 1
     (1, 2, 6, 4, "bf16", True),
     (1, 1, 4, 3, "fp32", True),  # L = 1
+    (1, 5, 6, 9, "fp32", True),  # K = 9 (the kernel's general instance), L < K − 1
 ]
 
 
@@ -142,3 +144,71 @@ def test_wrapper_dispatch_and_refusals():
         ops.short_conv_gate(u, w, gate[:, :-1])
     with pytest.raises(ValueError, match=r"\(B, L, D\)"):
         ops.short_conv_gate(u[0], w)
+
+
+def _zeros(shape, dtype):
+    return torch.zeros(shape, dtype=dtype)
+
+
+_BF16, _F32 = torch.bfloat16, torch.float32
+_PROJ = _zeros((2, 4, 2592), _BF16)  # hyena-153m's projection, (N+1)·D channels
+_BUF = _zeros(4096, _BF16)
+
+
+# (case, u, gate, K, instance): the kernel's instance for CPU tensors'
+# pointers and strides (the CPU allocator starts a tensor on 64 bytes)
+PLAN_CASES = [
+    ("projection", _PROJ, _PROJ, 3, "vector"),
+    ("split views of the projection", _PROJ[..., :864], _PROJ[..., 864:1728], 3, "vector"),
+    ("views at channels 1728 and 0", _PROJ[..., 1728:], _PROJ[..., :864], 3, "vector"),
+    ("ungated fp32, D = 2592 + 4", _zeros((2, 3, 2596), _F32), None, 3, "vector"),
+    ("K = 8", _PROJ, None, 8, "vector"),
+    ("B = 1, its stride never stepped", _BUF.as_strided((1, 4, 64), (1001, 64, 1)), None, 3,
+     "vector"),
+    ("L = 1, its stride never stepped", _BUF.as_strided((2, 1, 64), (64, 7, 1)), None, 3,
+     "vector"),
+    ("u one element off 16 bytes", _PROJ[..., 1:865], None, 3, "scalar"),
+    ("gate one element off 16 bytes", _PROJ[..., :864], _PROJ[..., 865:1729], 3, "scalar"),
+    ("row stride not a multiple of V", _zeros((2, 3, 868), _BF16)[..., :864], None, 3, "scalar"),
+    ("batch stride not a multiple of V", _BUF.as_strided((2, 4, 64), (260, 64, 1)), None, 3,
+     "scalar"),
+    ("ragged D = 33", _zeros((2, 3, 33), _F32), None, 3, "scalar"),
+    ("D = 2592 + 4 in bf16", _zeros((2, 3, 2596), _BF16), None, 3, "scalar"),
+    ("K = 9", _PROJ, _PROJ, 9, "general"),
+    ("K = 64 off 16 bytes", _PROJ[..., 1:865], None, 64, "general"),
+]
+
+
+@pytest.mark.parametrize("case,u,gate,K,instance", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_short_conv_plan(case, u, gate, K, instance):
+    assert sc.short_conv_plan(u, torch.zeros(u.shape[2], K), gate) == instance
+
+
+# (B, L, n_vec, gated, (R, n_runs, threads))
+GEOMETRY_CASES = [
+    (4, 1024, 324, False, (16, 64, 82944)),  # hyena-153m's projection in bf16
+    (4, 1024, 324, True, (8, 128, 165888)),
+    (1, 1024, 108, False, (4, 256, 27648)),  # runs halved to fill the card
+    (1, 1024, 108, True, (4, 256, 27648)),
+    (3, 1, 324, True, (1, 1, 972)),  # L = 1
+    (2, 1001, 324, False, (16, 63, 40824)),  # L not a multiple of R
+    (2, 3, 324, True, (3, 1, 648)),  # L shorter than the shortest run
+    (2, 10, 8, False, (4, 3, 48)),  # a small call: runs no shorter than AHEAD
+]
+
+
+@pytest.mark.parametrize("B,L,n_vec,gated,want", GEOMETRY_CASES)
+def test_short_conv_vector_geometry(B, L, n_vec, gated, want):
+    assert sc.vector_geometry(B, L, n_vec, gated=gated) == want
+
+
+def test_short_conv_constants_and_refusals():
+    """A run is no shorter than the ring of rows in flight, unless L is;
+    the kernel wrapper refuses CPU tensors before it plans anything."""
+    assert (sc.vector_width(_BF16), sc.vector_width(_F32)) == (8, 4)
+    assert sc.AHEAD <= sc.RUN_ROWS_GATED <= sc.RUN_ROWS
+    for L in (1, 3, 4, 100):
+        for gated in (False, True):
+            assert sc.vector_geometry(1, L, 1, gated=gated)[0] == min(sc.AHEAD, L)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        short_conv_gate(_PROJ, torch.zeros(2592, 0))
